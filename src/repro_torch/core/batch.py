@@ -1,0 +1,110 @@
+"""Batched stream ops on torch tensors — the plain versions of the kernels.
+
+Rows are SENTINEL-padded sorted int32 matrices (B, cap). ``bounds`` is a
+per-row exclusive upper bound (SENTINEL = unbounded, the R3 operand),
+``lbounds`` a per-row exclusive lower bound (-1 = unbounded). Membership is
+a batched binary search (``torch.searchsorted``), O(cap_a · log cap_b) per
+row. These functions run on any device; the CUDA kernels in
+``repro_torch.kernels`` are held against them.
+
+Compaction (``batch_compact_scan``) is a segmented prefix-sum scatter,
+O(B·cap), no sort. It is correct under the **monotonicity precondition**:
+base rows are sorted and the keep mask selects without reordering, so
+survivor j goes to slot ``cumsum(keep)[j] - 1`` of its row, and items come
+out in row-major (i, j) order. Survivors past ``out_cap`` / ``out_items``
+are dropped: they are scattered into one dump slot past the end of a
+buffer that is then sliced off (an out-of-range scatter index is an error
+in torch, not a drop).
+"""
+from __future__ import annotations
+
+import torch
+
+from .stream import SENTINEL
+
+
+def _row_membership(rows_a: torch.Tensor, rows_b: torch.Tensor) -> torch.Tensor:
+    """mark[i, s] = A_i[s] ∈ B_i and A_i[s] != SENTINEL."""
+    idx = torch.searchsorted(rows_b, rows_a)
+    hit = rows_b.gather(1, idx.clamp_(max=rows_b.shape[1] - 1)) == rows_a
+    return hit & (rows_a != SENTINEL)
+
+
+def _bounds(rows_a: torch.Tensor, bounds) -> torch.Tensor:
+    if bounds is None:
+        return torch.full((rows_a.shape[0],), SENTINEL, dtype=torch.int32,
+                          device=rows_a.device)
+    return bounds
+
+
+def _lbounds(rows_a: torch.Tensor, lbounds) -> torch.Tensor:
+    """Per-row exclusive lower bound; -1 = unbounded (vertex ids are >= 0)."""
+    if lbounds is None:
+        return torch.full((rows_a.shape[0],), -1, dtype=torch.int32,
+                          device=rows_a.device)
+    return lbounds
+
+
+def inter_keep(rows_a, rows_b, bounds=None, lbounds=None) -> torch.Tensor:
+    """keep[i, s] = A_i[s] ∈ B_i and lbounds[i] < A_i[s] < bounds[i]."""
+    ub, lb = _bounds(rows_a, bounds), _lbounds(rows_a, lbounds)
+    return _row_membership(rows_a, rows_b) & (rows_a < ub[:, None]) \
+        & (rows_a > lb[:, None])
+
+
+def _scan_compact_parts(rows_a: torch.Tensor, keep: torch.Tensor, out_cap: int):
+    """Shared segmented-prefix-sum core: (rows, counts, keep, pos, row).
+
+    ``pos`` is each survivor's slot in its row stream, ``row`` the row index
+    grid; the item scatter in ``batch_compact_scan`` reuses both."""
+    B, cap = rows_a.shape
+    dev = rows_a.device
+    keep = keep & (rows_a != SENTINEL)
+    counts = keep.sum(dim=1, dtype=torch.int32)
+    pos = keep.cumsum(dim=1, dtype=torch.int32) - 1
+    row = torch.arange(B, dtype=torch.int64, device=dev)[:, None].expand(B, cap)
+    dump = B * out_cap
+    slot = torch.where(keep & (pos < out_cap), row * out_cap + pos, dump)
+    rows = torch.full((dump + 1,), SENTINEL, dtype=torch.int32, device=dev)
+    rows.scatter_(0, slot.reshape(-1), rows_a.reshape(-1))
+    return rows[:dump].view(B, out_cap), counts, keep, pos, row
+
+
+def batch_compact_scan(rows_a: torch.Tensor, keep: torch.Tensor, out_cap: int,
+                       out_items: int):
+    """Fused survivor-stream + worklist compaction from one keep mask.
+
+    Output contract (``kernels.ops.xinter_compact``):
+
+      rows   (B, out_cap)   front-packed survivor streams
+      counts (B,)           per-row survivor counts
+      src    (out_items,)   item -> source row   (0 past total)
+      verts  (out_items,)   item extension vertex (0 past total)
+      total  ()             live item count
+      maxc   ()             max per-row survivor count
+    """
+    rows, counts, keep, pos, row = _scan_compact_parts(rows_a, keep, out_cap)
+    offs = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+    ipos = offs[:, None] + pos
+    ipos = torch.where(keep & (ipos < out_items), ipos, out_items).reshape(-1).long()
+    dev = rows_a.device
+    src = torch.zeros(out_items + 1, dtype=torch.int32, device=dev)
+    src.scatter_(0, ipos, row.reshape(-1).to(torch.int32))
+    verts = torch.zeros(out_items + 1, dtype=torch.int32, device=dev)
+    verts.scatter_(0, ipos, rows_a.reshape(-1))
+    return (rows, counts, src[:out_items], verts[:out_items],
+            counts.sum(dtype=torch.int32), counts.max())
+
+
+def batch_inter_count(rows_a, rows_b, bounds=None, lbounds=None) -> torch.Tensor:
+    """counts[i] = |{k in A_i ∩ B_i : lbounds[i] < k < bounds[i]}| —
+    batched S_INTER.C."""
+    return inter_keep(rows_a, rows_b, bounds, lbounds).sum(dim=1, dtype=torch.int32)
+
+
+def batch_inter_compact(rows_a, rows_b, bounds, out_cap: int, out_items: int,
+                        lbounds=None):
+    """Fused batched S_INTER + worklist compaction — one keep mask feeding
+    ``batch_compact_scan``."""
+    return batch_compact_scan(rows_a, inter_keep(rows_a, rows_b, bounds, lbounds),
+                              out_cap, out_items)

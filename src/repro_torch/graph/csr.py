@@ -1,0 +1,151 @@
+"""Padded CSR graph on torch tensors (the paper's S_CSR register file, §III-A).
+
+The CSR offset register keeps its meaning: for every vertex v, the number
+of neighbours smaller than v (the position of the first neighbour larger
+than v), which serves symmetry breaking.
+
+  * ``indices`` is SENTINEL-padded to a LANE multiple with at least one pad
+    slot, so a window gather starting at any row end stays in bounds.
+  * Every neighbour list is sorted ascending (all stream ops need it).
+  * ``degree_buckets`` groups vertices by power-of-two capacity.
+
+The graph is built on the host with numpy and moved to a device once with
+``CSRGraph.to``. ``from_reference_arrays`` / ``to_numpy`` carry a graph in
+and out as plain numpy arrays, so one graph can feed two implementations.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.stream import LANE, SENTINEL, round_capacity
+
+_FIELDS = ("indptr", "indices", "offsets", "degrees")
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRGraph:
+    """Compressed sparse row graph; all neighbour lists sorted ascending."""
+
+    indptr: torch.Tensor    # (V+1,) int32
+    indices: torch.Tensor   # (E_pad,) int32, SENTINEL-padded to LANE multiple
+    offsets: torch.Tensor   # (V,)   int32: first idx in N(v) with neighbour > v
+    degrees: torch.Tensor   # (V,)   int32
+    num_vertices: int = 0
+    num_edges: int = 0
+    max_degree: int = 0
+
+    @property
+    def padded_max_degree(self) -> int:
+        return round_capacity(self.max_degree)
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def to(self, device) -> "CSRGraph":
+        """The same graph with every tensor on ``device``."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in _FIELDS})
+
+
+def build_csr(edges: np.ndarray, num_vertices: int | None = None,
+              undirected: bool = True) -> CSRGraph:
+    """Build a CPU CSRGraph from an (M, 2) int edge array.
+
+    Self-loops and duplicate edges are removed; for ``undirected`` graphs both
+    directions are materialised.
+    """
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    if num_vertices is None:
+        num_vertices = int(edges.max()) + 1 if edges.size else 0
+    edges = edges[edges[:, 0] != edges[:, 1]]                  # drop self loops
+    if undirected:
+        edges = np.concatenate([edges, edges[:, ::-1]], axis=0)
+    key = edges[:, 0] * np.int64(num_vertices) + edges[:, 1]
+    _, uniq = np.unique(key, return_index=True)
+    edges = edges[uniq]
+    edges = edges[np.lexsort((edges[:, 1], edges[:, 0]))]
+
+    src, dst = edges[:, 0], edges[:, 1]
+    degrees = np.bincount(src, minlength=num_vertices).astype(np.int32)
+    indptr = np.zeros(num_vertices + 1, dtype=np.int32)
+    np.cumsum(degrees, out=indptr[1:])
+    num_edges = int(edges.shape[0])
+
+    e_pad = round_capacity(num_edges + 1)  # +1: a window starting at E stays in-bounds
+    indices = np.full(e_pad, SENTINEL, dtype=np.int32)
+    indices[:num_edges] = dst.astype(np.int32)
+    # with no self-loops, first index with neighbour > v == |{w < v}|
+    offsets = np.bincount(src[dst < src], minlength=num_vertices).astype(np.int32)
+    return from_reference_arrays(
+        dict(indptr=indptr, indices=indices, offsets=offsets, degrees=degrees),
+        num_vertices=int(num_vertices), num_edges=num_edges,
+        max_degree=int(degrees.max()) if num_vertices else 0, device="cpu")
+
+
+def from_reference_arrays(arrays: dict[str, np.ndarray], num_vertices: int,
+                          num_edges: int, max_degree: int,
+                          device="cuda") -> CSRGraph:
+    """CSRGraph from the four CSR arrays of a graph held elsewhere (for
+    example the JAX package's ``CSRGraph`` fields, taken as numpy arrays)."""
+    missing = [f for f in _FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"missing CSR arrays: {missing}")
+    tensors = {f: torch.from_numpy(np.array(arrays[f], dtype=np.int32)).to(device)
+               for f in _FIELDS}
+    return CSRGraph(**tensors, num_vertices=int(num_vertices),
+                    num_edges=int(num_edges), max_degree=int(max_degree))
+
+
+def to_numpy(g: CSRGraph) -> dict[str, np.ndarray]:
+    """The four CSR arrays as host numpy arrays (inverse of
+    ``from_reference_arrays``)."""
+    return {f: getattr(g, f).cpu().numpy() for f in _FIELDS}
+
+
+def padded_rows(g: CSRGraph, vs: torch.Tensor, cap: int):
+    """Gather the neighbour lists of a vertex batch into a (B, cap) matrix.
+
+    Returns (keys, lengths): keys SENTINEL-padded/truncated to ``cap``, both
+    int32 on the graph's device. Window indices are clamped into
+    ``indices``, so the window past the last vertex reads SENTINEL padding.
+    """
+    vs = vs.long()
+    starts = g.indptr[vs].long()
+    lens = g.indptr[vs + 1].long() - starts
+    col = torch.arange(cap, dtype=torch.int64, device=vs.device)
+    idx = (starts[:, None] + col[None, :]).clamp_(0, g.indices.shape[0] - 1)
+    rows = torch.where(col[None, :] < lens[:, None], g.indices[idx],
+                       SENTINEL)
+    return rows, torch.clamp(lens, max=cap).to(torch.int32)
+
+
+def degree_buckets(g: CSRGraph, base: int = LANE) -> list[tuple[int, np.ndarray]]:
+    """Host-side: group vertices into power-of-two capacity buckets.
+
+    Returns [(cap, vertex_ids), ...] with cap ∈ {base, 2·base, 4·base, ...},
+    covering every vertex with degree > 0. Padding waste per bucket ≤ 2×.
+    """
+    deg = g.degrees.cpu().numpy()
+    out: list[tuple[int, np.ndarray]] = []
+    cap = base
+    lo = 1
+    while lo <= max(int(deg.max()) if deg.size else 0, 1):
+        sel = np.nonzero((deg >= lo) & (deg <= cap))[0]
+        if sel.size:
+            out.append((cap, sel.astype(np.int32)))
+        lo = cap + 1
+        cap *= 2
+    return out
+
+
+def edge_list(g: CSRGraph) -> np.ndarray:
+    """(E, 2) directed edge array (host), in CSR order."""
+    indptr = g.indptr.cpu().numpy()
+    indices = g.indices.cpu().numpy()[: g.num_edges]
+    src = np.repeat(np.arange(g.num_vertices, dtype=np.int32),
+                    np.diff(indptr).astype(np.int64))
+    return np.stack([src, indices], axis=1)

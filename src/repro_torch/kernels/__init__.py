@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels (``csrc/``), the code that builds them, and op wrappers.
+
+Importing this package builds nothing: a kernel is compiled at its first
+launch on a CUDA tensor (``build.load``).
+"""

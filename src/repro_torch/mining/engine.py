@@ -1,0 +1,446 @@
+"""Wavefront pattern-enumeration engine on torch tensors: device-resident,
+host-orchestrated.
+
+The counterpart of ``repro.mining.engine``. A compiled ``WavePlan`` runs in
+level-synchronous waves:
+
+  level 1: the edge list (half edges v1 < v0 when the plan's restrictions
+           break that symmetry, straight from the CSR offset register),
+           bucketed by the degree of v0 and fed in fixed-width chunks
+  level l: each surviving work item's base stream is intersected with one
+           neighbour stream under its bounds (the clique case is
+           S_l = S_{l-1} ∩ N(v) ∩ [0, v)), then counted or compacted
+
+Between levels the survivors are compacted on the device
+(``ops.xinter_compact``: the intersect-expand kernel, then a prefix-sum
+scatter) into the next wave's (rows, verts) buffers. Per level only one
+small meta vector (total, max survivor count, max degree of each gathered
+column) crosses to the host, to size the next level's capacities; count
+levels leave one int64 partial per chunk on the device, summed and read
+once per run. Padded tail items carry bound 0, so they contribute nothing.
+
+This slice runs levels of the single-INTER shape (``_fused_shape`` ==
+'inter'): triangles, k-cliques and the other plans whose every level
+intersects one neighbour stream. Other level shapes raise
+``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.stream import LANE, SENTINEL, round_capacity
+from repro_torch.graph.csr import CSRGraph, padded_rows
+from repro_torch.kernels.ops import xinter_compact, xinter_count
+from repro_torch.obs import LegacyStatsView, Telemetry
+
+from .plan import LevelOp, WavePlan
+
+
+def half_edges(g: CSRGraph) -> np.ndarray:
+    """(E/2, 2) array of (v0, v1) with v1 < v0 — the symmetry-breaking edge
+    frontier, read directly via the CSR offset register (offsets[v0] = number
+    of neighbours < v0)."""
+    indptr = g.indptr.cpu().numpy()
+    indices = g.indices.cpu().numpy()
+    counts = g.offsets.cpu().numpy().astype(np.int64)
+    v0 = np.repeat(np.arange(g.num_vertices, dtype=np.int32), counts)
+    # position of each kept slot within its row
+    pos = np.arange(counts.sum(), dtype=np.int64) - np.repeat(
+        np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+    v1 = indices[indptr[v0].astype(np.int64) + pos]
+    return np.stack([v0, v1], axis=1)
+
+
+def directed_edges(g: CSRGraph) -> np.ndarray:
+    """(E, 2) all directed edges (v0, v1) in CSR order."""
+    indptr = g.indptr.cpu().numpy().astype(np.int64)
+    v0 = np.repeat(np.arange(g.num_vertices, dtype=np.int32), np.diff(indptr))
+    v1 = g.indices.cpu().numpy()[: g.num_edges]
+    return np.stack([v0, v1], axis=1)
+
+
+def _pad_to(x: np.ndarray, n: int, fill) -> np.ndarray:
+    if x.shape[0] == n:
+        return x
+    pad = np.full((n - x.shape[0],) + x.shape[1:], fill, dtype=x.dtype)
+    return np.concatenate([x, pad], axis=0)
+
+
+def _pow2cap(n: int) -> int:
+    """Smallest power-of-two LANE multiple >= n (degree bucket capacity)."""
+    c = LANE
+    while c < n:
+        c *= 2
+    return c
+
+
+def _pow2caps(d: np.ndarray) -> np.ndarray:
+    """``_pow2cap`` over an array of degrees."""
+    caps = np.full(d.shape, LANE, dtype=np.int64)
+    while (small := caps < d).any():
+        caps[small] *= 2
+    return caps
+
+
+def edge_chunks(g: CSRGraph, chunk: int, symmetric: bool = True):
+    """Host half of the level-1 feed: yields (cap, v0, v1, n) degree-bucketed
+    chunk-padded int32 vertex arrays *without* materialising neighbour rows —
+    row gathers happen on the device so the feed can be double-buffered."""
+    edges = half_edges(g) if symmetric else directed_edges(g)
+    if edges.shape[0] == 0:
+        return
+    caps = _pow2caps(g.degrees.cpu().numpy()[edges[:, 0]])
+    for cap in np.unique(caps):
+        sel = edges[caps == cap]
+        # fixed chunk width: one executable shape per degree bucket
+        nb = min(chunk, _pow2cap(sel.shape[0]))
+        for lo in range(0, sel.shape[0], nb):
+            sl = sel[lo: lo + nb]
+            n = sl.shape[0]
+            v0 = _pad_to(sl[:, 0].astype(np.int32), nb, 0)
+            v1 = _pad_to(sl[:, 1].astype(np.int32), nb, 0)
+            yield int(cap), v0, v1, n
+
+
+def _neighbor_cap(g: CSRGraph, verts: np.ndarray) -> int:
+    """Degree-bucket capacity of the largest neighbour list of ``verts``
+    (``g`` on the host)."""
+    deg = g.degrees.numpy()
+    mx = int(deg[verts].max()) if len(verts) else 1
+    return _pow2cap(max(mx, 1))
+
+
+DEFAULT_CHUNK = 4096
+
+
+def choose_chunk(cap: int, budget_bytes: int = 64 << 20) -> int:
+    """Chunk size so one wave's buffers stay within ``budget_bytes``."""
+    per_row = cap * 4 * 4  # rows + neighbour rows + output + slack
+    c = max(LANE, budget_bytes // max(per_row, 1))
+    return int(min(DEFAULT_CHUNK * 4, (c // LANE) * LANE))
+
+
+class WaveRunner:
+    """Stream-program interpreter: executes a compiled ``WavePlan`` on the
+    device-resident wavefront pipeline.
+
+    * **executable cache** keyed by (kind, LevelOp, capacities, chunk):
+      an executable is a built level body; a miss is a rebuild
+      (``stats['exec_misses']``);
+    * **fused expand + compaction**: survivors are compacted on the
+      device; the only per-level host traffic is the meta vector that sizes
+      the next level's capacities;
+    * **prefix-column forwarding**: the compiler's liveness fields
+      (``out_cols``/``gather_refs``) say which matched vertices deeper
+      levels reference; they are gathered through the compacted ``src``
+      indices on the device;
+    * **double-buffered feed**: level-1 edge chunks go to the device from
+      pinned memory one chunk ahead of compute;
+    * **per-chunk device partials**: count levels reduce to one int64 per
+      chunk on the device, summed and read once at the end of ``run``.
+    """
+
+    # ``stats`` keys, in the reference engine's order; each is a registry
+    # counter the view derives from
+    _STAT_KEYS = ("exec_hits", "exec_misses", "host_syncs",
+                  "device_compactions", "items", "level_kernel_dispatches")
+
+    def __init__(self, g: CSRGraph, exec_cache, chunk: int | None = None,
+                 telemetry: Telemetry | None = None):
+        self.g = g
+        self.device = g.device
+        # host copy for the feed and capacity sizing (free when g is on the CPU)
+        self.host_g = g.to("cpu")
+        # chunk <= 2^15 keeps chunk sizes, and so every counter, equal to the
+        # reference engine's (whose (hi, lo) int32 partials need the clamp)
+        self.chunk = min(chunk or choose_chunk(g.padded_max_degree), 1 << 15)
+        # session-lifetime executable cache (mining.session.ExecutableCache)
+        self._exec_cache = exec_cache
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self.metrics = self.telemetry.metrics
+        self.stats = LegacyStatsView()
+        self._ct = {k: self.stats.expose_counter(k, self.metrics)
+                    for k in self._STAT_KEYS}
+        self._ct_feed_chunks = self.metrics.counter("feed_chunks")
+
+    # ------------------------------------------------------------ slice
+    @staticmethod
+    def _fused_shape(op: LevelOp) -> str | None:
+        """'inter'/'sub' when one fused bounded kernel covers the level."""
+        if op.exclude:
+            return None
+        if len(op.inter) == 1 and not op.sub:
+            return "inter"
+        if len(op.sub) == 1 and not op.inter:
+            return "sub"
+        return None
+
+    @classmethod
+    def _require_slice(cls, plan: WavePlan) -> None:
+        """Raise for a level this slice of the port cannot run yet."""
+        for op in plan.ops:
+            if op.kind == "emit":
+                why = "emit levels (embeddings) arrive with the session slice"
+            elif op.agg is not None:
+                why = "aggregate levels arrive with the value-plane slice"
+            elif cls._fused_shape(op) == "sub":
+                why = "SUB levels arrive with the SUB-level slice"
+            elif cls._fused_shape(op) is None:
+                why = "general k-operand levels arrive with their own slice"
+            else:
+                continue
+            raise NotImplementedError(
+                f"{plan.pattern.name}: level {op.level} ({op.kind}, inter="
+                f"{op.inter}, sub={op.sub}, exclude={op.exclude}) — {why} "
+                "(ROADMAP.md, modules still to port)")
+
+    # ------------------------------------------------------------ cache
+    def _executable(self, key: tuple, build: Callable) -> Callable:
+        fn, fresh = self._exec_cache.get_or_build((self.chunk,) + key, build)
+        self._ct["exec_misses" if fresh else "exec_hits"].inc()
+        return fn
+
+    # ------------------------------------------------------------ feed
+    def _edge_feed(self, symmetric: bool = True):
+        """Double-buffered level-1 feed: (cap, dv0, dv1, v1_host, n).
+
+        Chunk N+1 is copied to the device (from pinned memory, without
+        blocking the host) before chunk N is handed to the consumer."""
+        pin = self.device.type == "cuda"
+        pending = None
+        for cap, v0, v1, n in edge_chunks(self.host_g, self.chunk, symmetric):
+            t = torch.from_numpy(np.stack([v0, v1]))
+            if pin:
+                t = t.pin_memory()
+            dv = t.to(self.device, non_blocking=True)
+            if pending is not None:
+                yield pending
+            pending = (cap, dv[0], dv[1], v1, n)
+        if pending is not None:
+            yield pending
+
+    # ------------------------------------------------------------ plan parts
+    @staticmethod
+    def _in_cols(op: LevelOp) -> tuple[int, ...]:
+        """Prefix columns whose *values* the level executable consumes."""
+        cols = set(op.val_refs()) | {c for c in op.gather_refs if c < op.level}
+        return tuple(sorted(cols))
+
+    @staticmethod
+    def _min_ub(op: LevelOp, get):
+        ub = get[op.ub[0]]
+        for u in op.ub[1:]:
+            ub = torch.minimum(ub, get[u])
+        return ub
+
+    @staticmethod
+    def _max_lb(op: LevelOp, get):
+        lb = get[op.lb[0]]
+        for w in op.lb[1:]:
+            lb = torch.maximum(lb, get[w])
+        return lb
+
+    def _ub_vec(self, op: LevelOp, get, n: int, nrows: int) -> torch.Tensor:
+        """Per-row effective upper bound for the kernels: min over the ``ub``
+        columns (SENTINEL when unbounded), then zeroed for padding rows and
+        residual-failing items — bound 0 kills the whole row in the kernel."""
+        if op.ub:
+            ub = self._min_ub(op, get)
+        else:
+            ub = torch.full((nrows,), SENTINEL, dtype=torch.int32,
+                            device=self.device)
+        ok = torch.arange(nrows, device=self.device) < n
+        for kind, i, j in op.residual:
+            ok = ok & ((get[i] < get[j]) if kind == "lt" else (get[i] != get[j]))
+        return torch.where(ok, ub, 0)
+
+    def _base(self, op: LevelOp, g, get, carry, caps: dict) -> torch.Tensor:
+        return carry if op.use_carry else \
+            padded_rows(g, get[op.base], caps[op.base])[0]
+
+    def _plan_count_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int):
+        """Terminal count level -> one int64 partial per chunk, on device."""
+        return self._executable(("pcount", op, caps_sig, cap_base),
+                                lambda: self._count_body(op, caps_sig))
+
+    def _count_body(self, op: LevelOp, caps_sig: tuple):
+        in_cols = self._in_cols(op)
+        caps = dict(caps_sig)
+        ref = op.inter[0]
+
+        def fn(g, vals, carry, n):
+            get = dict(zip(in_cols, vals))
+            base = self._base(op, g, get, carry, caps)
+            ub = self._ub_vec(op, get, n, base.shape[0])
+            lb = self._max_lb(op, get) if op.lb else None
+            nbr, _ = padded_rows(g, get[ref], caps[ref])
+            counts = xinter_count(base, nbr, ub, lbounds=lb).long()
+            if op.tail is not None:
+                col, c = op.tail
+                counts = counts * (g.degrees[get[col].long()].long() - c)
+            return counts.sum()
+        return fn
+
+    def _survivor_core(self, op: LevelOp, caps: dict, out_cap: int,
+                       out_items: int):
+        """Survivors -> compacted items, in one ``xinter_compact``: the
+        per-row bound vector (``_ub_vec``) folds the upper bounds, the live
+        mask and any residuals into the bound operand; lower bounds ride
+        ``lbounds``."""
+        ref = op.inter[0]
+
+        def core(g, get, base, n):
+            ub = self._ub_vec(op, get, n, base.shape[0])
+            lb = self._max_lb(op, get) if op.lb else None
+            nbr, _ = padded_rows(g, get[ref], caps[ref])
+            return xinter_compact(base, nbr, ub, out_cap=out_cap,
+                                  out_items=out_items, lbounds=lb)
+        return core
+
+    def _plan_expand_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int,
+                        out_cap: int, out_items: int):
+        """Fused gather + intersect + on-device compaction + meta.
+
+        meta = [total, max survivor count] + [max degree of column c over
+        live items, for c in op.gather_refs] — the only host sync per level.
+        """
+        return self._executable(
+            ("pexpand", op, caps_sig, cap_base, out_cap, out_items),
+            lambda: self._expand_body(op, caps_sig, out_cap, out_items))
+
+    def _expand_body(self, op: LevelOp, caps_sig: tuple, out_cap: int,
+                     out_items: int):
+        in_cols = self._in_cols(op)
+        caps = dict(caps_sig)
+        core = self._survivor_core(op, caps, out_cap, out_items)
+
+        def fn(g, vals, carry, n):
+            get = dict(zip(in_cols, vals))
+            base = self._base(op, g, get, carry, caps)
+            rows2, _, src, verts, total, maxc = core(g, get, base, n)
+            live = torch.arange(out_items, device=src.device) < total
+            metas = [total, maxc]
+            for c in op.gather_refs:
+                cv = verts if c == op.level else get[c][src.long()]
+                metas.append(torch.where(live, g.degrees[cv.long()], 0).max())
+            return rows2, src, verts, torch.stack(metas)
+        return fn
+
+    def _plan_chunk_fn(self, op: LevelOp, b: int, out_cap: int, cap2: int,
+                       chunk: int):
+        """Slice the compacted worklist into the next level's device wave:
+        forwarded prefix columns gather through ``src`` (zeroed past the live
+        count so padding items carry bound 0 everywhere), the new vertex
+        column comes from ``verts``, and the survivor streams become the next
+        carry when the compiler proved reuse."""
+        return self._executable(("pchunk", op, b, out_cap, cap2, chunk),
+                                lambda: self._chunk_body(op, cap2, chunk))
+
+    @staticmethod
+    def _chunk_body(op: LevelOp, cap2: int, chunk: int):
+        carry_out = op.carry_out
+
+        def fn(rows2, src, verts2, colvals, lo, m):
+            s = src[lo: lo + chunk].long()
+            valid = torch.arange(chunk, device=src.device) < m
+            v = torch.where(valid, verts2[lo: lo + chunk], 0)
+            outs = tuple(torch.where(valid, cv[s], 0) for cv in colvals)
+            if carry_out:
+                return outs, v, rows2[s, :cap2]
+            return outs, v, None
+        return fn
+
+    # ------------------------------------------------------- the interpreter
+    def _finalize(self, plan: WavePlan, parts: list) -> int:
+        """Sum one plan's per-chunk device partials: one host read."""
+        if not parts:
+            return 0
+        total = int(torch.stack(parts).sum())
+        self._ct["host_syncs"].inc()
+        if total % plan.div:
+            raise RuntimeError(f"{plan.pattern.name}: total {total} is not a "
+                               f"multiple of div {plan.div}")
+        return total // plan.div
+
+    def run(self, plan: WavePlan) -> int:
+        """Execute a compiled counting ``WavePlan``; returns the count
+        (divided by ``plan.div``)."""
+        self._require_slice(plan)
+        op0 = plan.ops[0]
+        outs: list = []
+        for cap0, dv0, dv1, v1h, n in self._edge_feed(plan.symmetric):
+            self._ct_feed_chunks.inc()
+            caps = {0: cap0}
+            if 1 in op0.row_refs():
+                caps[1] = _neighbor_cap(self.host_g, v1h)
+            outs += self._plan_descend(plan, 0, {0: dv0, 1: dv1}, caps, None, n)
+        return self._finalize(plan, outs)
+
+    def _plan_descend(self, plan: WavePlan, oi: int, cols: dict, caps: dict,
+                      carry, n: int) -> list:
+        """Execute plan.ops[oi] on one wave chunk; recurse over survivors."""
+        op = plan.ops[oi]
+        caps_sig = tuple(sorted((c, caps[c]) for c in op.row_refs()))
+        cap_base = int(carry.shape[1]) if op.use_carry else caps[op.base]
+        vals = tuple(cols[c] for c in self._in_cols(op))
+        if op.kind == "count":
+            self._ct["level_kernel_dispatches"].inc()   # one kernel launch
+            fn = self._plan_count_fn(op, caps_sig, cap_base)
+            return [fn(self.g, vals, carry, n)]
+        b = int(carry.shape[0]) if op.use_carry else int(cols[op.base].shape[0])
+        out_cap = min([cap_base] + [caps[j] for j in op.inter])
+        out_items = -(-b * out_cap // self.chunk) * self.chunk
+        parts: list = []
+        for cols2, caps2, carry2, m in self._expand_chunks_device(
+                op, caps_sig, cap_base, out_cap, out_items, b, cols, vals,
+                carry, n):
+            parts += self._plan_descend(plan, oi + 1, cols2, caps2, carry2, m)
+        return parts
+
+    def _expand_device(self, op, caps_sig, cap_base, out_cap, out_items,
+                       vals, carry, n):
+        """Run one expand executable + meta sync. Returns ``None`` when no
+        survivors, else (rows2, src, verts2, total, caps2, cap2)."""
+        self._ct["level_kernel_dispatches"].inc()   # one kernel launch
+        fn = self._plan_expand_fn(op, caps_sig, cap_base, out_cap, out_items)
+        rows2, src, verts2, meta = fn(self.g, vals, carry, n)
+        total, maxc, *dmaxs = meta.tolist()       # the level's one host sync
+        self._ct["host_syncs"].inc()
+        self._ct["device_compactions"].inc()
+        self._ct["items"].inc(total)
+        if total == 0:
+            return None
+        caps2 = {c: _pow2cap(max(d, 1)) for c, d in zip(op.gather_refs, dmaxs)}
+        cap2 = round_capacity(maxc) if op.carry_out else 0
+        return rows2, src, verts2, total, caps2, cap2
+
+    def _expand_chunks(self, op, b, out_cap, cap2, rows2, src, verts2, cols,
+                       total):
+        """Slice a compacted (src, verts) worklist into next-level device
+        chunks; yields (cols2, carry2, m)."""
+        cfn = self._plan_chunk_fn(op, b, out_cap, cap2, self.chunk)
+        fwd = [c for c in op.out_cols if c < op.level]
+        fwdvals = tuple(cols[c] for c in fwd)
+        for lo in range(0, total, self.chunk):
+            m = min(self.chunk, total - lo)
+            outs, vch, carry2 = cfn(rows2, src, verts2, fwdvals, lo, m)
+            cols2 = dict(zip(fwd, outs))
+            if op.level in op.out_cols:
+                cols2[op.level] = vch
+            yield cols2, carry2, m
+
+    def _expand_chunks_device(self, op, caps_sig, cap_base, out_cap,
+                              out_items, b, cols, vals, carry, n):
+        """Run one expand level on the device; yield the next wave's chunks
+        as (cols2, caps2, carry2, m)."""
+        exp = self._expand_device(op, caps_sig, cap_base, out_cap, out_items,
+                                  vals, carry, n)
+        if exp is None:
+            return
+        rows2, src, verts2, total, caps2, cap2 = exp
+        for cols2, carry2, m in self._expand_chunks(
+                op, b, out_cap, cap2, rows2, src, verts2, cols, total):
+            yield cols2, caps2, carry2, m

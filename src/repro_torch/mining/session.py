@@ -1,0 +1,139 @@
+"""Miner session API: a graph-resident query engine.
+
+    m = Miner(graph)                   # graph moves to the card once
+    m.count("triangle")                # -> int
+    m.count("5-clique")
+
+The counterpart of ``repro.mining.session``. Every query runs through two
+stages, each memoised for the session's lifetime:
+
+**compile** — a query (a name from ``plan._NAMED_QUERIES``, a ``Motif``
+shape, or an explicit ``Pattern``) lowers to a ``WavePlan`` via
+``plan.compile_pattern``; a ``Motif`` first gets its matching order from
+``forest.schedule_patterns``. Plans are cached per query.
+
+**execute** — ``engine.WaveRunner`` interprets the plan. The graph's CSR
+tensors move to the session's device once, at construction, and every
+built level executable lives in the session's ``ExecutableCache`` (keys:
+``(chunk, kind, LevelOp, capacity signature, ...)``), so a repeated query
+rebuilds nothing (``stats['rebuilds']`` counts the misses).
+
+A session runs on ``cuda`` unless its config says ``device="cpu"``; with
+no card it raises rather than carrying on on the CPU. A ``Miner`` is
+single-threaded.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.obs import LegacyStatsView, Telemetry
+
+from .engine import WaveRunner
+from .forest import schedule_patterns
+from .plan import Motif, WavePlan, compile_pattern, resolve_query
+
+__all__ = ["ExecutableCache", "Miner", "MinerConfig"]
+
+
+class ExecutableCache:
+    """Session-lifetime cache of built level executables, with hit/miss
+    stats; ``misses`` counts executables actually built — the session's
+    *rebuild* counter."""
+
+    def __init__(self):
+        self._entries: dict[tuple, Callable] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def get_or_build(self, key: tuple, build: Callable):
+        """Return (executable, freshly_built?) for ``key``."""
+        fn = self._entries.get(key)
+        if fn is None:
+            fn = self._entries[key] = build()
+            self.misses += 1
+            return fn, True
+        self.hits += 1
+        return fn, False
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def snapshot(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._entries)}
+
+
+@dataclasses.dataclass(frozen=True)
+class MinerConfig:
+    """Session construction knobs (``Miner(g, **kwargs)`` builds one)."""
+
+    chunk: int | None = None          # wave chunk; None = auto-sized
+    device: str = "cuda"              # "cpu" runs the kernels' plain versions
+
+
+class Miner:
+    """A graph-resident mining session: compile → execute."""
+
+    _SESSION_KEYS = ("queries", "plan_hits", "plan_misses")
+
+    def __init__(self, graph: CSRGraph, config: MinerConfig | None = None,
+                 **overrides):
+        if config is None:
+            config = MinerConfig(**overrides)
+        elif overrides:
+            config = dataclasses.replace(config, **overrides)
+        device = torch.device(config.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Miner runs on a CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "mine with the kernels' plain torch versions")
+        self.config = config
+        self.telemetry = Telemetry()
+        self.metrics = self.telemetry.metrics
+        # the CSR tensors move to the device once per session; queries only
+        # ship per-chunk vertex ids after this
+        self.graph = graph.to(device)
+        self.exec_cache = ExecutableCache()
+        self._runner = WaveRunner(self.graph, self.exec_cache, chunk=config.chunk,
+                                  telemetry=self.telemetry)
+        self._plans: dict = {}
+        self._stats = LegacyStatsView()
+        self._sct = {k: self._stats.expose_counter(k, self.metrics)
+                     for k in self._SESSION_KEYS}
+
+    def compile(self, query) -> WavePlan:
+        """Lower one query to a ``WavePlan`` (cached)."""
+        resolved = resolve_query(query)
+        plan = self._plans.get(resolved)
+        if plan is not None:
+            self._sct["plan_hits"].inc()
+            return plan
+        self._sct["plan_misses"].inc()
+        pat = schedule_patterns([resolved])[0] if isinstance(resolved, Motif) \
+            else resolved
+        plan = self._plans[resolved] = compile_pattern(pat)
+        return plan
+
+    def count(self, query) -> int:
+        """Count embeddings of one pattern query."""
+        self._sct["queries"].inc()
+        return self._runner.run(self.compile(query))
+
+    @property
+    def runner(self) -> WaveRunner:
+        """The session's execute-stage interpreter."""
+        return self._runner
+
+    @property
+    def stats(self) -> dict:
+        """Session counters, the executable cache (``rebuilds`` = misses)
+        and the runner's dispatch/sync counters."""
+        cache = self.exec_cache.snapshot()
+        return {**self._stats, "exec_cache": cache,
+                "rebuilds": self.exec_cache.misses,
+                "runner": dict(self._runner.stats)}

@@ -1,0 +1,84 @@
+"""Mining telemetry: metrics registry + structured tracing + exporters.
+
+The counterpart of ``repro.obs``: one ``Telemetry`` object per session.
+
+* ``telemetry.metrics`` — a ``MetricsRegistry`` of typed counters /
+  gauges / histograms. Always on: the registry is the backing store of
+  the engine's ``stats`` dicts (derived views over its counters).
+* ``telemetry.tracer`` — a ``Tracer`` producing span trees. Off by
+  default, and the port's engine opens no spans yet (dispatch spans come
+  with the telemetry slice of the port).
+* exporters — Chrome-trace/Perfetto JSON, a Prometheus text snapshot, and
+  ``snapshot()`` (metrics + per-span aggregates).
+
+``Telemetry()`` is disabled tracing + live metrics; ``Miner`` shares one
+``Telemetry`` with its runner so a query's counters land in one place.
+"""
+from __future__ import annotations
+
+from .export import chrome_trace, prometheus_text, write_chrome_trace
+from .registry import (Counter, Gauge, Histogram, LegacyStatsView,
+                       MetricsRegistry)
+from .trace import Span, Tracer
+
+__all__ = ["Telemetry", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "LegacyStatsView", "Span", "Tracer", "chrome_trace",
+           "prometheus_text", "write_chrome_trace"]
+
+
+class Telemetry:
+    """Registry + tracer + export surface for one mining session."""
+
+    def __init__(self, enabled: bool = False,
+                 registry: MetricsRegistry | None = None):
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self.tracer = Tracer(enabled=enabled)
+
+    # ------------------------------------------------------------- control
+    @property
+    def enabled(self) -> bool:
+        return self.tracer.enabled
+
+    def enable(self) -> None:
+        self.tracer.enabled = True
+
+    def disable(self) -> None:
+        self.tracer.enabled = False
+
+    # ------------------------------------------------------------- export
+    def snapshot(self) -> dict:
+        """Everything an external consumer wants in one dict: the metrics
+        snapshot, per-span-name wall/self-time aggregates, and the root
+        span summaries (name, seconds, #children)."""
+        spans: dict[str, dict] = {}
+        for sp in self.tracer.spans():
+            agg = spans.setdefault(sp.name, {"count": 0, "seconds": 0.0,
+                                             "self_seconds": 0.0})
+            agg["count"] += 1
+            agg["seconds"] += sp.seconds
+            agg["self_seconds"] += sp.self_seconds
+        return {
+            "metrics": self.metrics.snapshot(),
+            "spans": spans,
+            "roots": [{"name": r.name, "cat": r.cat,
+                       "seconds": r.seconds,
+                       "spans": sum(1 for _ in r.walk())}
+                      for r in self.tracer.finished],
+        }
+
+    def chrome_trace(self) -> dict:
+        return chrome_trace(self.tracer)
+
+    def write_trace(self, path):
+        return write_chrome_trace(path, self.tracer, self.metrics)
+
+    def prometheus_text(self, prefix: str = "mining_") -> str:
+        return self.metrics.prometheus_text(prefix=prefix)
+
+
+# module-level disabled singleton: runners built without a session share
+# this so bare WaveRunner construction never allocates tracer state; note
+# its *registry* is still per-runner (each runner builds its own
+# Telemetry unless handed one — see WaveRunner.__init__)
+def null_telemetry() -> Telemetry:
+    return Telemetry(enabled=False)

@@ -8,6 +8,12 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one "
+        "(on the GPU machine: `pytest -m cuda tests/test_torch_cuda.py`)")
+
+
 def pytest_collection(session):
     """TIER1_REQUIRE_DEPS=1 (set by scripts/tier1.sh == CI) asserts that
     no test runs on a degraded dependency: a missing ``hypothesis`` fails

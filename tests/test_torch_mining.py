@@ -1,0 +1,168 @@
+"""The port's mining path (repro_torch.Miner) against the JAX package's.
+
+Counts and the engine counters whose meaning carries over must be equal on
+the same graphs; the port must import neither JAX nor the JAX package; the
+framework-free modules it copies must stay equal to their originals.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.graph import get_dataset as jget_dataset
+from repro.mining import baseline as jbaseline
+from repro.mining import engine as jengine
+from repro.mining.session import Miner as JMiner
+from repro_torch import Miner
+from repro_torch.graph import get_dataset
+from repro_torch.mining import baseline, engine
+from repro_torch.mining.session import MinerConfig
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+GRAPHS = [("citeseer", 1.0), ("email-eu-core", 0.25)]
+QUERIES = ["triangle", "4-clique", "5-clique", "tailed-triangle", "triangle-nested"]
+COUNTERS = ("exec_misses", "exec_hits", "items", "device_compactions",
+            "level_kernel_dispatches")
+
+
+def runner_counters(miner) -> dict:
+    st = dict(miner.stats["runner"])
+    out = {k: st[k] for k in COUNTERS}
+    out["feed_chunks"] = miner.metrics.counter("feed_chunks").value
+    return out
+
+
+@pytest.mark.parametrize("name,scale", GRAPHS)
+@pytest.mark.parametrize("chunk", [None, 128])
+def test_counts_and_counters_equal_jax_miner(name, scale, chunk):
+    """chunk=128 splits every wave into several chunks with padded tails."""
+    tm = Miner(get_dataset(name, scale), device="cpu", chunk=chunk)
+    jm = JMiner(jget_dataset(name, scale), backend="xla", chunk=chunk)
+    for q in QUERIES:
+        assert tm.count(q) == jm.count(q), q
+        assert runner_counters(tm) == runner_counters(jm), q
+
+
+def test_reference_counts_on_email_eu_core():
+    m = Miner(get_dataset("email-eu-core", 0.25), device="cpu")
+    assert [m.count(q) for q in ("triangle", "4-clique", "5-clique")] == \
+        [11502, 10622, 5051]
+    assert m.stats["runner"]["items"] == 11502 + 11502 + 10622
+
+
+def test_counts_equal_scalar_baseline_and_reference_baseline():
+    g = get_dataset("email-eu-core", 0.25)
+    jg = jget_dataset("email-eu-core", 0.25)
+    m = Miner(g, device="cpu")
+    assert baseline.triangle_count(g) == jbaseline.triangle_count(jg) == m.count("triangle")
+    assert baseline.clique_count(g, 4) == jbaseline.clique_count(jg, 4) \
+        == m.count("4-clique")
+
+
+def test_planted_cliques_equal_jax_miner_and_baseline():
+    """Planted 5-, 6- and 7-cliques make every clique count non-zero."""
+    from repro.graph.csr import build_csr as jbuild_csr
+    from repro_torch.graph.csr import build_csr
+    from repro_torch.graph.generators import clique_planted
+    edges = clique_planted(300, 900, (5, 6, 7), seed=4)
+    g, jg = build_csr(edges, 300), jbuild_csr(edges, 300)
+    tm, jm = Miner(g, device="cpu", chunk=256), JMiner(jg, backend="xla", chunk=256)
+    for k, q in ((3, "triangle"), (4, "4-clique"), (5, "5-clique")):
+        got = tm.count(q)
+        assert got == jm.count(q) == baseline.clique_count(g, k) > 0, q
+        assert runner_counters(tm) == runner_counters(jm), q
+
+
+def test_repeated_query_rebuilds_nothing():
+    m = Miner(get_dataset("email-eu-core", 0.25), device="cpu")
+    first = [m.count(q) for q in ("triangle", "5-clique")]
+    rebuilds = m.stats["rebuilds"]
+    assert [m.count(q) for q in ("triangle", "5-clique")] == first
+    st = m.stats
+    assert st["rebuilds"] == rebuilds and st["plan_hits"] == 2
+    assert st["exec_cache"]["entries"] == rebuilds
+
+
+def test_engine_feed_equals_reference():
+    g, jg = get_dataset("email-eu-core", 0.25), jget_dataset("email-eu-core", 0.25)
+    np.testing.assert_array_equal(engine.half_edges(g), jengine.half_edges(jg))
+    np.testing.assert_array_equal(engine.directed_edges(g), jengine.directed_edges(jg))
+    for chunk in (128, 1024):
+        got = list(engine.edge_chunks(g, chunk))
+        want = list(jengine.edge_chunks(jg, chunk))
+        assert len(got) == len(want)
+        for (c, v0, v1, n), (wc, wv0, wv1, wn) in zip(got, want):
+            assert (c, n) == (wc, wn)
+            np.testing.assert_array_equal(v0, wv0)
+            np.testing.assert_array_equal(v1, wv1)
+    for cap in (128, 2048, 18560, 32768):
+        assert engine.choose_chunk(cap) == jengine.choose_chunk(cap)
+    degs = np.array([0, 1, 127, 128, 129, 300, 4096, 4097, 18517])
+    assert engine._pow2caps(degs).tolist() == [jengine._pow2cap(max(int(d), 1))
+                                               for d in degs]
+
+
+@pytest.mark.parametrize("query", ["three-chain", "diamond", "4-cycle", "paw"])
+def test_levels_of_later_slices_raise(query):
+    m = Miner(get_dataset("citeseer", 1.0), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        m.count(query)
+    assert m.stats["runner"]["level_kernel_dispatches"] == 0
+
+
+def test_miner_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = get_dataset("citeseer", 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Miner(g)
+    with pytest.raises(RuntimeError):
+        Miner(g, MinerConfig(device="cuda"))
+
+
+def test_launch_mine_runs_on_cpu_with_baseline(capsys):
+    from repro_torch.launch import mine
+    got = mine.main(["--app", "4C", "--dataset", "email-eu-core", "--scale", "0.25",
+                     "--device", "cpu", "--baseline"])
+    assert got == 10622
+    out = capsys.readouterr().out
+    assert "4C = 10622" in out and "baseline(InHouseAutoMine) = 10622" in out
+
+
+def _port_modules() -> list[str]:
+    pkg = SRC / "repro_torch"
+    return sorted(".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(".__init__")
+                  for p in pkg.rglob("*.py"))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = _port_modules()
+    assert "repro_torch.kernels.intersect" in mods and len(mods) >= 20
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(SRC)},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_port_source_names_neither_jax_nor_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    files = list((SRC / "repro_torch").rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+@pytest.mark.parametrize("path", [
+    "graph/generators.py", "mining/plan.py", "mining/forest.py", "obs/registry.py",
+    "obs/trace.py", "obs/export.py", "launch/cli.py"])
+def test_copied_modules_equal_their_originals(path):
+    assert (SRC / "repro_torch" / path).read_bytes() == (SRC / "repro" / path).read_bytes()
