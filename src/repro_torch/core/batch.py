@@ -108,3 +108,62 @@ def batch_inter_compact(rows_a, rows_b, bounds, out_cap: int, out_items: int,
     ``batch_compact_scan``."""
     return batch_compact_scan(rows_a, inter_keep(rows_a, rows_b, bounds, lbounds),
                               out_cap, out_items)
+
+
+def batch_member_mark(rows_a: torch.Tensor, rows_b: torch.Tensor) -> torch.Tensor:
+    """mark[i, s] = A_i[s] ∈ B_i (and A_i[s] live) — the plain version of the
+    mark kernel run unbounded; the engine's ``fused_level=False`` path ANDs
+    one of these per INTER/SUB reference into a level's keep mask."""
+    return _row_membership(rows_a, rows_b)
+
+
+def sub_keep(rows_a, rows_b, bounds=None, lbounds=None) -> torch.Tensor:
+    """keep[i, s] = A_i[s] ∉ B_i, A_i[s] live and lbounds[i] < A_i[s] < bounds[i]."""
+    ub, lb = _bounds(rows_a, bounds), _lbounds(rows_a, lbounds)
+    return ~_row_membership(rows_a, rows_b) & (rows_a != SENTINEL) \
+        & (rows_a < ub[:, None]) & (rows_a > lb[:, None])
+
+
+def batch_sub_count(rows_a, rows_b, bounds=None, lbounds=None) -> torch.Tensor:
+    """counts[i] = |{k in A_i \\ B_i : lbounds[i] < k < bounds[i]}| —
+    batched S_SUB.C."""
+    return sub_keep(rows_a, rows_b, bounds, lbounds).sum(dim=1, dtype=torch.int32)
+
+
+def batch_sub_compact(rows_a, rows_b, bounds, out_cap: int, out_items: int,
+                      lbounds=None):
+    """Fused batched S_SUB + worklist compaction: the complement's keep mask
+    feeding ``batch_compact_scan``."""
+    return batch_compact_scan(rows_a, sub_keep(rows_a, rows_b, bounds, lbounds),
+                              out_cap, out_items)
+
+
+def level_keep(rows_a, bs, pol, bounds=None, lbounds=None,
+               excludes=None) -> torch.Tensor:
+    """keep = window ∧ excludes ∧ (∈ B_r ∀ INTER r) ∧ (∉ B_r ∀ SUB r) for a
+    level of k = len(pol) references; ``bs`` is their (k, B, cap_b) stack
+    (None when k = 0), ``excludes`` a (B, E) array of injectivity keys."""
+    ub, lb = _bounds(rows_a, bounds), _lbounds(rows_a, lbounds)
+    keep = (rows_a != SENTINEL) & (rows_a < ub[:, None]) & (rows_a > lb[:, None])
+    if excludes is not None:
+        keep = keep & (rows_a[:, :, None] != excludes[:, None, :]).all(dim=2)
+    for r, p in enumerate(pol):
+        m = _row_membership(rows_a, bs[r])
+        keep = keep & m if p else keep & ~m
+    return keep
+
+
+def batch_level_count(rows_a, bs, pol, bounds=None, lbounds=None,
+                      excludes=None) -> torch.Tensor:
+    """counts[i] = |{k ∈ A_i : all pol-signed memberships, window, excludes}|
+    — a whole multi-operand level's S_*.C (k = 0: a window-only count)."""
+    return level_keep(rows_a, bs, pol, bounds, lbounds, excludes) \
+        .sum(dim=1, dtype=torch.int32)
+
+
+def batch_level_compact(rows_a, bs, pol, bounds, lbounds, excludes,
+                        out_cap: int, out_items: int):
+    """Fused multi-operand level + scan compaction — ``batch_compact_scan``'s
+    contract for any k-reference level."""
+    return batch_compact_scan(rows_a, level_keep(rows_a, bs, pol, bounds, lbounds,
+                                                 excludes), out_cap, out_items)

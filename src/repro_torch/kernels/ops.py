@@ -6,9 +6,14 @@ a CPU tensor takes its plain torch version; see ``kernels.intersect``).
 """
 from __future__ import annotations
 
-from repro_torch.core.batch import batch_compact_scan
+import torch
 
-from .intersect import intersect_count, intersect_expand
+from repro_torch.core.batch import (batch_compact_scan, batch_level_compact,
+                                    batch_level_count)
+from repro_torch.core.stream import SENTINEL
+
+from .intersect import (intersect_count, intersect_expand, intersect_mark,
+                        intersect_multi)
 
 
 def xinter_count(a, b, bounds=None, lbounds=None):
@@ -36,3 +41,77 @@ def xinter_compact(a, b, bounds=None, out_cap: int | None = None,
     mark, counts = intersect_expand(a, b, bounds, lbounds)
     rows, _, src, verts, total, maxc = batch_compact_scan(a, mark > 0, cap, items)
     return rows, counts, src, verts, total, maxc
+
+
+def xmark(a, b):
+    """Batched membership mask: mark[i, s] = A_i[s] ∈ B_i (live slots only),
+    bool. The ``fused_level=False`` level composition ANDs one per
+    INTER/SUB reference; the mark kernel runs unbounded, so the same mark
+    serves INTER (mask) and SUB (~mask), and the caller applies the bounds."""
+    return intersect_mark(a, b) > 0
+
+
+def _sub_window(a, bounds, lbounds):
+    """The complement's value window (lbound, bound) as a keep mask.
+
+    SUB bounds live outside the mark kernel: its bound operand masks
+    *matches*, which is the wrong polarity for a complement (a key outside
+    the window must be dropped whether or not it matched)."""
+    keep = a != SENTINEL
+    if bounds is not None:
+        keep = keep & (a < bounds[:, None])
+    if lbounds is not None:
+        keep = keep & (a > lbounds[:, None])
+    return keep
+
+
+def _sub_kernel_keep(a, b, bounds, lbounds):
+    # the mark kernel runs UNBOUNDED here (see _sub_window on polarity)
+    return (intersect_mark(a, b) == 0) & _sub_window(a, bounds, lbounds)
+
+
+def xsub_count(a, b, bounds=None, lbounds=None):
+    """Batched bounded S_SUB.C:
+    counts[i] = |{k ∈ A_i \\ B_i : lbounds[i] < k < bounds[i]}|."""
+    return _sub_kernel_keep(a, b, bounds, lbounds).sum(dim=1, dtype=torch.int32)
+
+
+def xsub_compact(a, b, bounds=None, out_cap: int | None = None,
+                 out_items: int | None = None, lbounds=None):
+    """Fused bounded S_SUB + worklist compaction — ``xinter_compact``'s twin
+    for SUB levels (induced non-edge constraints), same output contract.
+    ``out_cap`` defaults to cap_a: a complement can keep all of A."""
+    cap = out_cap or a.shape[1]
+    items = out_items or a.shape[0] * cap
+    return batch_compact_scan(a, _sub_kernel_keep(a, b, bounds, lbounds), cap, items)
+
+
+def xlevel_count(a, bs, pol, bounds=None, lbounds=None, excludes=None):
+    """Fused multi-operand level count — one launch for a whole INTER/SUB
+    µop sequence:
+
+    counts[i] = |{k ∈ A_i : k ∈ B^r_i ∀ INTER r, k ∉ B^r_i ∀ SUB r,
+                  lbounds[i] < k < bounds[i], k ∉ excludes[i]}|
+
+    ``bs`` is the (k, B, cap_b) reference stack, ``pol`` the INTER-first
+    polarity tuple. ``pol = ()`` (a window/injectivity-only level) is the
+    plain torch form on every device, as in the JAX package: there is no
+    stream work for a kernel to fuse, so this is the design, not a fallback.
+    """
+    if not pol:
+        return batch_level_count(a, bs, pol, bounds, lbounds, excludes)
+    return intersect_multi(a, bs, pol, bounds, lbounds, excludes)[1]
+
+
+def xlevel_compact(a, bs, pol, bounds=None, out_cap: int | None = None,
+                   out_items: int | None = None, lbounds=None, excludes=None):
+    """Fused multi-operand level + worklist compaction: the k-reference
+    kernel gives the keep mark, ``batch_compact_scan`` the six outputs of
+    ``xinter_compact``'s contract. ``pol = ()`` as in ``xlevel_count``."""
+    cap = out_cap or a.shape[1]
+    items = out_items or a.shape[0] * cap
+    if not pol:
+        return batch_level_compact(a, bs, pol, bounds, lbounds, excludes,
+                                   cap, items)
+    mark, _ = intersect_multi(a, bs, pol, bounds, lbounds, excludes)
+    return batch_compact_scan(a, mark > 0, cap, items)

@@ -63,3 +63,37 @@ def clique_count(g: CSRGraph, k: int) -> int:
             if s2.shape[0]:
                 total += rec(s2, 3) if k > 3 else s2.shape[0]
     return total
+
+
+def three_chain_count(g: CSRGraph, induced: bool = False) -> int:
+    indptr, indices = _adj(g)
+    deg = g.degrees.cpu().numpy().astype(np.int64)
+    if not induced:
+        return int((deg * (deg - 1) // 2).sum())
+    total = 0
+    for m in range(g.num_vertices):
+        nm = _nbrs(indptr, indices, m)
+        for a in nm:
+            na = _nbrs(indptr, indices, a)
+            rest = np.setdiff1d(nm, na, assume_unique=True)
+            total += int(rest.shape[0] - np.searchsorted(rest, a, side="right"))
+    return total
+
+
+def tailed_triangle_count(g: CSRGraph) -> int:
+    indptr, indices = _adj(g)
+    deg = g.degrees.cpu().numpy().astype(np.int64)
+    total = 0
+    for v0 in range(g.num_vertices):
+        n0 = _nbrs(indptr, indices, v0)
+        for v1 in n0:
+            n1 = _nbrs(indptr, indices, v1)
+            common = np.intersect1d(n0, n1, assume_unique=True)
+            c = int(np.searchsorted(common, v0))        # v2 < v0
+            total += c * int(deg[v1] - 2)
+    return total
+
+
+def three_motif(g: CSRGraph) -> dict[str, int]:
+    return {"triangle": triangle_count(g),
+            "chain": three_chain_count(g, induced=True)}

@@ -19,9 +19,17 @@ column) crosses to the host, to size the next level's capacities; count
 levels leave one int64 partial per chunk on the device, summed and read
 once per run. Padded tail items carry bound 0, so they contribute nothing.
 
-This slice runs levels of the single-INTER shape (``_fused_shape`` ==
-'inter'): triangles, k-cliques and the other plans whose every level
-intersects one neighbour stream. Other level shapes raise
+A level runs in one of three shapes, as in the reference engine:
+
+  'inter'  one INTER reference: the count / expand kernels
+  'sub'    one SUB reference (an induced non-edge): the mark kernel, run
+           unbounded, with the bound window applied outside it
+  general  k INTER/SUB references and injectivity excludes: the
+           k-reference kernel (``fused_level``), or with
+           ``fused_level=False`` one mark launch per reference ANDed into
+           the keep mask; a window-only level (k = 0) launches nothing
+
+Emit levels (embeddings) and aggregate levels (the value plane) raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
@@ -31,9 +39,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.batch import batch_compact_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows
-from repro_torch.kernels.ops import xinter_compact, xinter_count
+from repro_torch.kernels.ops import (xinter_compact, xinter_count,
+                                     xlevel_compact, xlevel_count, xmark,
+                                     xsub_compact, xsub_count)
 from repro_torch.obs import LegacyStatsView, Telemetry
 
 from .plan import LevelOp, WavePlan
@@ -149,8 +160,11 @@ class WaveRunner:
                   "device_compactions", "items", "level_kernel_dispatches")
 
     def __init__(self, g: CSRGraph, exec_cache, chunk: int | None = None,
-                 telemetry: Telemetry | None = None):
+                 telemetry: Telemetry | None = None, fused_level: bool = True):
         self.g = g
+        # general levels: one k-reference launch (True) or one mark launch
+        # per reference (False)
+        self.fused_level = fused_level
         self.device = g.device
         # host copy for the feed and capacity sizing (free when g is on the CPU)
         self.host_g = g.to("cpu")
@@ -186,10 +200,6 @@ class WaveRunner:
                 why = "emit levels (embeddings) arrive with the session slice"
             elif op.agg is not None:
                 why = "aggregate levels arrive with the value-plane slice"
-            elif cls._fused_shape(op) == "sub":
-                why = "SUB levels arrive with the SUB-level slice"
-            elif cls._fused_shape(op) is None:
-                why = "general k-operand levels arrive with their own slice"
             else:
                 continue
             raise NotImplementedError(
@@ -197,9 +207,24 @@ class WaveRunner:
                 f"{op.inter}, sub={op.sub}, exclude={op.exclude}) — {why} "
                 "(ROADMAP.md, modules still to port)")
 
+    def _level_dispatches(self, op: LevelOp) -> int:
+        """Membership-kernel launches one level call issues: 1 for a fused
+        or a general level, k per general level with ``fused_level=False``
+        (one mark per reference), 0 for a window-only level."""
+        if self._fused_shape(op) is not None:
+            return 1
+        k = len(op.inter) + len(op.sub)
+        if k == 0:
+            return 0
+        return 1 if self.fused_level else k
+
+    def _bump(self, op: LevelOp) -> None:
+        self._ct["level_kernel_dispatches"].inc(self._level_dispatches(op))
+
     # ------------------------------------------------------------ cache
     def _executable(self, key: tuple, build: Callable) -> Callable:
-        fn, fresh = self._exec_cache.get_or_build((self.chunk,) + key, build)
+        fn, fresh = self._exec_cache.get_or_build(
+            (self.chunk, self.fused_level) + key, build)
         self._ct["exec_misses" if fresh else "exec_hits"].inc()
         return fn
 
@@ -261,6 +286,53 @@ class WaveRunner:
         return carry if op.use_carry else \
             padded_rows(g, get[op.base], caps[op.base])[0]
 
+    def _mask_ops(self, op: LevelOp, caps: dict):
+        """The ``fused_level=False`` general path: AND one membership mark
+        per INTER/SUB reference (one mark launch each) with the bound,
+        injectivity, residual and live masks."""
+
+        def keep_of(g, base, get, n):
+            keep = base != SENTINEL
+            for j in op.inter:
+                keep = keep & xmark(base, padded_rows(g, get[j], caps[j])[0])
+            for j in op.sub:
+                keep = keep & ~xmark(base, padded_rows(g, get[j], caps[j])[0])
+            if op.ub:
+                keep = keep & (base < self._min_ub(op, get)[:, None])
+            if op.lb:
+                keep = keep & (base > self._max_lb(op, get)[:, None])
+            for e in op.exclude:
+                keep = keep & (base != get[e][:, None])
+            for kind, i, j in op.residual:
+                ok = (get[i] < get[j]) if kind == "lt" else (get[i] != get[j])
+                keep = keep & ok[:, None]
+            live = torch.arange(base.shape[0], device=base.device) < n
+            return keep & live[:, None]
+        return keep_of
+
+    @staticmethod
+    def _stack_refs(g, get, caps: dict, refs: tuple[int, ...]) -> torch.Tensor:
+        """Gather the k reference neighbour streams into the k-reference
+        kernel's (k, B, cap) operand; refs gathered at smaller degree
+        buckets are SENTINEL-padded to the widest (rows stay sorted)."""
+        capmax = max(caps[j] for j in refs)
+        rows = []
+        for j in refs:
+            r, _ = padded_rows(g, get[j], caps[j])
+            if caps[j] < capmax:
+                r = torch.nn.functional.pad(r, (0, capmax - caps[j]),
+                                            value=SENTINEL)
+            rows.append(r)
+        return torch.stack(rows)
+
+    @staticmethod
+    def _excl_vals(op: LevelOp, get):
+        """Per-row injectivity keys for the k-reference kernel's excludes
+        operand, (B, E) int32 (None when the level declares none)."""
+        if not op.exclude:
+            return None
+        return torch.stack([get[e] for e in op.exclude], dim=1)
+
     def _plan_count_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int):
         """Terminal count level -> one int64 partial per chunk, on device."""
         return self._executable(("pcount", op, caps_sig, cap_base),
@@ -269,15 +341,31 @@ class WaveRunner:
     def _count_body(self, op: LevelOp, caps_sig: tuple):
         in_cols = self._in_cols(op)
         caps = dict(caps_sig)
-        ref = op.inter[0]
+        fused = self._fused_shape(op)
+        keep_of = self._mask_ops(op, caps)
+        refs = op.inter + op.sub
+        pol = (1,) * len(op.inter) + (0,) * len(op.sub)
+        use_xlevel = fused is None and self.fused_level
 
         def fn(g, vals, carry, n):
             get = dict(zip(in_cols, vals))
             base = self._base(op, g, get, carry, caps)
-            ub = self._ub_vec(op, get, n, base.shape[0])
-            lb = self._max_lb(op, get) if op.lb else None
-            nbr, _ = padded_rows(g, get[ref], caps[ref])
-            counts = xinter_count(base, nbr, ub, lbounds=lb).long()
+            if fused:
+                ub = self._ub_vec(op, get, n, base.shape[0])
+                lb = self._max_lb(op, get) if op.lb else None
+                ref = op.inter[0] if fused == "inter" else op.sub[0]
+                nbr, _ = padded_rows(g, get[ref], caps[ref])
+                cfun = xinter_count if fused == "inter" else xsub_count
+                counts = cfun(base, nbr, ub, lbounds=lb)
+            elif use_xlevel:
+                ub = self._ub_vec(op, get, n, base.shape[0])
+                lb = self._max_lb(op, get) if op.lb else None
+                bs = self._stack_refs(g, get, caps, refs) if refs else None
+                counts = xlevel_count(base, bs, pol, ub, lbounds=lb,
+                                      excludes=self._excl_vals(op, get))
+            else:
+                counts = keep_of(g, base, get, n).sum(dim=1, dtype=torch.int32)
+            counts = counts.long()
             if op.tail is not None:
                 col, c = op.tail
                 counts = counts * (g.degrees[get[col].long()].long() - c)
@@ -286,18 +374,37 @@ class WaveRunner:
 
     def _survivor_core(self, op: LevelOp, caps: dict, out_cap: int,
                        out_items: int):
-        """Survivors -> compacted items, in one ``xinter_compact``: the
-        per-row bound vector (``_ub_vec``) folds the upper bounds, the live
-        mask and any residuals into the bound operand; lower bounds ride
-        ``lbounds``."""
-        ref = op.inter[0]
+        """Survivors -> compacted items in one ``x*_compact``: a fused
+        'inter'/'sub' level or a general level through the k-reference
+        kernel, where the per-row bound vector (``_ub_vec``) folds the upper
+        bounds, the live mask and any residuals into the bound operand and
+        lower bounds ride ``lbounds``; with ``fused_level=False`` a general
+        level composes one mark per reference. Every path ends in the
+        ``batch_compact_scan`` prefix-sum scatter."""
+        fused = self._fused_shape(op)
+        keep_of = self._mask_ops(op, caps)
+        refs = op.inter + op.sub
+        pol = (1,) * len(op.inter) + (0,) * len(op.sub)
+        use_xlevel = fused is None and self.fused_level
 
         def core(g, get, base, n):
-            ub = self._ub_vec(op, get, n, base.shape[0])
-            lb = self._max_lb(op, get) if op.lb else None
-            nbr, _ = padded_rows(g, get[ref], caps[ref])
-            return xinter_compact(base, nbr, ub, out_cap=out_cap,
-                                  out_items=out_items, lbounds=lb)
+            if fused:
+                ub = self._ub_vec(op, get, n, base.shape[0])
+                lb = self._max_lb(op, get) if op.lb else None
+                ref = op.inter[0] if fused == "inter" else op.sub[0]
+                nbr, _ = padded_rows(g, get[ref], caps[ref])
+                cfun = xinter_compact if fused == "inter" else xsub_compact
+                return cfun(base, nbr, ub, out_cap=out_cap,
+                            out_items=out_items, lbounds=lb)
+            if use_xlevel:
+                ub = self._ub_vec(op, get, n, base.shape[0])
+                lb = self._max_lb(op, get) if op.lb else None
+                bs = self._stack_refs(g, get, caps, refs) if refs else None
+                return xlevel_compact(base, bs, pol, ub, out_cap=out_cap,
+                                      out_items=out_items, lbounds=lb,
+                                      excludes=self._excl_vals(op, get))
+            return batch_compact_scan(base, keep_of(g, base, get, n), out_cap,
+                                      out_items)
         return core
 
     def _plan_expand_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int,
@@ -387,7 +494,7 @@ class WaveRunner:
         cap_base = int(carry.shape[1]) if op.use_carry else caps[op.base]
         vals = tuple(cols[c] for c in self._in_cols(op))
         if op.kind == "count":
-            self._ct["level_kernel_dispatches"].inc()   # one kernel launch
+            self._bump(op)
             fn = self._plan_count_fn(op, caps_sig, cap_base)
             return [fn(self.g, vals, carry, n)]
         b = int(carry.shape[0]) if op.use_carry else int(cols[op.base].shape[0])
@@ -404,7 +511,7 @@ class WaveRunner:
                        vals, carry, n):
         """Run one expand executable + meta sync. Returns ``None`` when no
         survivors, else (rows2, src, verts2, total, caps2, cap2)."""
-        self._ct["level_kernel_dispatches"].inc()   # one kernel launch
+        self._bump(op)
         fn = self._plan_expand_fn(op, caps_sig, cap_base, out_cap, out_items)
         rows2, src, verts2, meta = fn(self.g, vals, carry, n)
         total, maxc, *dmaxs = meta.tolist()       # the level's one host sync

@@ -15,8 +15,8 @@ shape, or an explicit ``Pattern``) lowers to a ``WavePlan`` via
 **execute** — ``engine.WaveRunner`` interprets the plan. The graph's CSR
 tensors move to the session's device once, at construction, and every
 built level executable lives in the session's ``ExecutableCache`` (keys:
-``(chunk, kind, LevelOp, capacity signature, ...)``), so a repeated query
-rebuilds nothing (``stats['rebuilds']`` counts the misses).
+``(chunk, fused_level, kind, LevelOp, capacity signature, ...)``), so a
+repeated query rebuilds nothing (``stats['rebuilds']`` counts the misses).
 
 A session runs on ``cuda`` unless its config says ``device="cpu"``; with
 no card it raises rather than carrying on on the CPU. A ``Miner`` is
@@ -73,6 +73,7 @@ class MinerConfig:
 
     chunk: int | None = None          # wave chunk; None = auto-sized
     device: str = "cuda"              # "cpu" runs the kernels' plain versions
+    fused_level: bool = True          # general levels: one k-reference launch
 
 
 class Miner:
@@ -100,7 +101,8 @@ class Miner:
         self.graph = graph.to(device)
         self.exec_cache = ExecutableCache()
         self._runner = WaveRunner(self.graph, self.exec_cache, chunk=config.chunk,
-                                  telemetry=self.telemetry)
+                                  telemetry=self.telemetry,
+                                  fused_level=config.fused_level)
         self._plans: dict = {}
         self._stats = LegacyStatsView()
         self._sct = {k: self._stats.expose_counter(k, self.metrics)

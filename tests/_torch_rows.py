@@ -39,3 +39,27 @@ def make_case(seed, batch, cap_a, cap_b):
     bounds, lbounds = make_bounds(rng, batch, hi)
     bounds[1] = 0                                        # a dead row
     return a, b, bounds, lbounds
+
+
+def make_level_case(seed, batch, cap_a, k, cap_b):
+    """A k-reference level's inputs: a (B, cap_a), the (k, B, cap_b) stack
+    bs, bounds/lbounds with a dead row 1, and (B, 2) excludes holding keys
+    of A (and -1, the no-op). Ref 0 of row 0 is A's own row, so an INTER
+    first ref keeps something; keys are drawn from a narrow range so that
+    rows overlap."""
+    rng = np.random.default_rng(seed)
+    hi = cap_a + cap_b
+    a = make_rows(rng, batch, cap_a, hi, empty_prob=0.1)
+    bs = np.stack([make_rows(rng, batch, cap_b, hi, empty_prob=0.1) for _ in range(k)])
+    bs[0, 0] = a[0, :cap_b] if cap_a >= cap_b else bs[0, 0]
+    bounds, lbounds = make_bounds(rng, batch, hi)
+    bounds[0], lbounds[0] = SENTINEL, -1
+    bounds[1] = 0
+    excl = np.full((batch, 2), -1, np.int32)
+    for i in range(batch):
+        live = a[i][a[i] != SENTINEL]
+        if live.size:
+            excl[i, 0] = rng.choice(live)
+            if rng.random() < 0.5:
+                excl[i, 1] = rng.choice(live)
+    return a, bs, bounds, lbounds, excl

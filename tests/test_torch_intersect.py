@@ -12,13 +12,21 @@ import torch
 
 from repro.core import batch as jbatch
 from repro.kernels import ops as jops
-from repro.kernels.intersect import intersect_count_pallas, intersect_expand_pallas
+from repro.kernels.intersect import (intersect_count_pallas, intersect_expand_pallas,
+                                     intersect_mark_pallas, intersect_multi_pallas)
 from repro_torch.core import batch as tbatch
 from repro_torch.core.stream import SENTINEL
 from repro_torch.kernels import intersect as K
 from repro_torch.kernels import ops as tops
 
-from _torch_rows import T, make_case, make_rows
+from _torch_rows import T, make_case, make_level_case, make_rows
+
+POLS = [(1,), (0,), (1, 0), (0, 0), (1, 1, 0)]
+
+
+def _j(*xs):
+    """numpy arrays (or None) -> JAX arrays."""
+    return [None if x is None else jnp.asarray(x) for x in xs]
 
 
 @pytest.mark.parametrize("cap_a", [128, 384, 640])
@@ -150,3 +158,141 @@ def test_batch_inter_compact_equals_reference():
                                       256, 2560, lbounds=jnp.asarray(lbounds))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("bounded", [True, False])
+@pytest.mark.parametrize("cap_a,cap_b", [(128, 128), (256, 128), (128, 256)])
+def test_mark_plain_version_equals_pallas_interpret(cap_a, cap_b, bounded):
+    a, b, bounds, lbounds = make_case(cap_a * 5 + cap_b + bounded, 8, cap_a, cap_b)
+    if not bounded:
+        bounds = lbounds = None
+    ja, jb, jbd, jlb = _j(a, b, bounds, lbounds)
+    want = intersect_mark_pallas(ja, jb, jbd, interpret=True, lbounds=jlb)
+    got = K.intersect_mark_ref(T(a), T(b), T(bounds), T(lbounds))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    before = K.intersect_mark.launches
+    assert torch.equal(K.intersect_mark(T(a), T(b), T(bounds), T(lbounds)), got)
+    assert K.intersect_mark.launches == before
+
+
+@pytest.mark.parametrize("with_excludes", [True, False])
+@pytest.mark.parametrize("pol", POLS)
+def test_multi_plain_version_equals_pallas_interpret(pol, with_excludes):
+    """Bound-0 rows, refs of full overlap, excludes holding keys of A."""
+    a, bs, bounds, lbounds, excl = make_level_case(len(pol) * 31 + with_excludes,
+                                                   8, 256, len(pol), 128)
+    excl = excl if with_excludes else None
+    ja, jbs, jbd, jlb, jex = _j(a, bs, bounds, lbounds, excl)
+    want_m, want_c = intersect_multi_pallas(ja, jbs, pol, jbd, interpret=True,
+                                            lbounds=jlb, excludes=jex)
+    got_m, got_c = K.intersect_multi_ref(T(a), T(bs), pol, T(bounds), T(lbounds), T(excl))
+    assert got_m.dtype == got_c.dtype == torch.int32
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    assert got_c[1].item() == 0 and got_c.sum().item() > 0
+    before = K.intersect_multi.launches
+    m, c = K.intersect_multi(T(a), T(bs), pol, T(bounds), T(lbounds), T(excl))
+    assert torch.equal(m, got_m) and torch.equal(c, got_c)
+    assert K.intersect_multi.launches == before
+
+
+def _bad_multi_inputs():
+    a = torch.zeros((4, 128), dtype=torch.int32)
+    bs = torch.zeros((2, 4, 128), dtype=torch.int32)
+    ex = torch.zeros((4, 2), dtype=torch.int32)
+    return {
+        "bs 2-D": (a, bs[0], (1,), None),
+        "pol length": (a, bs, (1,), None),
+        "pol not INTER-first": (a, bs, (0, 1), None),
+        "pol value": (a, bs, (1, 2), None),
+        "empty pol": (a, bs[:0], (), None),
+        "bs rows": (a, bs[:, :3].contiguous(), (1, 0), None),
+        "bs cap": (a, torch.zeros((2, 4, 100), dtype=torch.int32), (1, 0), None),
+        "excludes dtype": (a, bs, (1, 0), ex.long()),
+        "excludes rows": (a, bs, (1, 0), ex[:3]),
+        "excludes non-contiguous": (a, bs, (1, 0), torch.zeros((4, 4), dtype=torch.int32)[:, ::2]),
+        "excludes 1-D": (a, bs, (1, 0), ex[:, 0].contiguous()),
+        "device": (a.to("meta"), bs.to("meta"), (1, 0), None),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_multi_inputs()))
+def test_multi_wrapper_raises_on_what_the_kernel_does_not_take(case):
+    a, bs, pol, excl = _bad_multi_inputs()[case]
+    with pytest.raises(ValueError):
+        K.intersect_multi(a, bs, pol, excludes=excl)
+
+
+@pytest.mark.parametrize("case", sorted(_bad_inputs()))
+def test_mark_wrapper_raises_on_what_the_kernel_does_not_take(case):
+    a, b, bounds = _bad_inputs()[case]
+    with pytest.raises(ValueError):
+        K.intersect_mark(a, b, bounds)
+
+
+@pytest.mark.parametrize("cap_a,cap_b", [(128, 256), (384, 128)])
+def test_xmark_and_xsub_count_equal_jax_xla(cap_a, cap_b):
+    a, b, bounds, lbounds = make_case(cap_a * 2 + cap_b, 16, cap_a, cap_b)
+    ja, jb, jbd, jlb = _j(a, b, bounds, lbounds)
+    got = tops.xmark(T(a), T(b))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jops.xmark(ja, jb, backend="xla")))
+    for bd, lbd in ((bounds, lbounds), (bounds, None), (None, None)):
+        got = tops.xsub_count(T(a), T(b), T(bd), lbounds=T(lbd))
+        want = jops.xsub_count(ja, jb, *_j(bd), backend="xla", lbounds=_j(lbd)[0])
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(
+            tbatch.batch_sub_count(T(a), T(b), T(bd), T(lbd)).numpy(), np.asarray(want))
+
+
+COMPACT = ("rows", "counts", "src", "verts", "total", "maxc")
+
+
+def _assert_six_equal(got, want):
+    for name, g, w in zip(COMPACT, got, want):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+@pytest.mark.parametrize("cap_a,cap_b,out_cap,out_items", [
+    (128, 128, None, None), (384, 256, 256, 4096), (256, 640, 128, 1000)])
+def test_xsub_compact_equals_jax_xla(cap_a, cap_b, out_cap, out_items):
+    """All six outputs, on a chunk whose tail rows carry bound 0; out_cap
+    defaults to cap_a."""
+    a, b, bounds, lbounds = make_case(cap_a * 5 + cap_b, 16, cap_a, cap_b)
+    bounds[12:] = 0
+    ja, jb, jbd, jlb = _j(a, b, bounds, lbounds)
+    got = tops.xsub_compact(T(a), T(b), T(bounds), out_cap=out_cap, out_items=out_items,
+                            lbounds=T(lbounds))
+    want = jops.xsub_compact(ja, jb, jbd, out_cap=out_cap, out_items=out_items,
+                             backend="xla", lbounds=jlb)
+    _assert_six_equal(got, want)
+    assert got[0].shape[1] == (out_cap or cap_a) and int(got[4]) > 0
+    cap, items = out_cap or cap_a, out_items or 16 * (out_cap or cap_a)
+    _assert_six_equal(tbatch.batch_sub_compact(T(a), T(b), T(bounds), cap, items,
+                                               lbounds=T(lbounds)), want)
+
+
+@pytest.mark.parametrize("with_excludes", [True, False])
+@pytest.mark.parametrize("pol", [()] + POLS)
+def test_xlevel_count_and_compact_equal_jax_xla(pol, with_excludes):
+    """pol = () is the window-only level: no reference stack at all."""
+    a, bs, bounds, lbounds, excl = make_level_case(len(pol) * 17 + 3 * with_excludes,
+                                                   16, 256, max(len(pol), 1), 128)
+    bs = bs if pol else None
+    excl = excl if with_excludes else None
+    ja, jbs, jbd, jlb, jex = _j(a, bs, bounds, lbounds, excl)
+    got = tops.xlevel_count(T(a), T(bs), pol, T(bounds), lbounds=T(lbounds),
+                            excludes=T(excl))
+    want = jops.xlevel_count(ja, jbs, pol, jbd, backend="xla", lbounds=jlb, excludes=jex)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        tbatch.batch_level_count(T(a), T(bs), pol, T(bounds), T(lbounds), T(excl)).numpy(),
+        np.asarray(want))
+    got = tops.xlevel_compact(T(a), T(bs), pol, T(bounds), out_cap=256, out_items=2048,
+                              lbounds=T(lbounds), excludes=T(excl))
+    want = jops.xlevel_compact(ja, jbs, pol, jbd, out_cap=256, out_items=2048,
+                               backend="xla", lbounds=jlb, excludes=jex)
+    _assert_six_equal(got, want)
+    assert int(got[4]) > 0

@@ -4,6 +4,7 @@ Counts and the engine counters whose meaning carries over must be equal on
 the same graphs; the port must import neither JAX nor the JAX package; the
 framework-free modules it copies must stay equal to their originals.
 """
+import json
 import os
 import re
 import subprocess
@@ -21,11 +22,17 @@ from repro.mining.session import Miner as JMiner
 from repro_torch import Miner
 from repro_torch.graph import get_dataset
 from repro_torch.mining import baseline, engine
+from repro_torch.mining.plan import TRIANGLE, clique_pattern, compile_pattern
 from repro_torch.mining.session import MinerConfig
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 GRAPHS = [("citeseer", 1.0), ("email-eu-core", 0.25)]
-QUERIES = ["triangle", "4-clique", "5-clique", "tailed-triangle", "triangle-nested"]
+# SUB and general levels: three-chain(-induced) counts at a SUB level;
+# diamond, 4-star, 4-cycle, paw and 4-path run SUB and general levels
+LEVEL_QUERIES = ["three-chain", "three-chain-induced", "diamond", "4-star",
+                 "4-cycle", "paw", "4-path"]
+QUERIES = ["triangle", "4-clique", "5-clique", "tailed-triangle", "triangle-nested",
+           *LEVEL_QUERIES]
 COUNTERS = ("exec_misses", "exec_hits", "items", "device_compactions",
             "level_kernel_dispatches")
 
@@ -107,11 +114,85 @@ def test_engine_feed_equals_reference():
                                                for d in degs]
 
 
-@pytest.mark.parametrize("query", ["three-chain", "diamond", "4-cycle", "paw"])
+@pytest.mark.parametrize("name,scale", GRAPHS)
+def test_unfused_levels_equal_jax_miner(name, scale):
+    """fused_level=False: one mark launch per reference of a general level;
+    counts and counters (level_kernel_dispatches too) equal the JAX
+    engine's, and the count equals the fused run's."""
+    g, jg = get_dataset(name, scale), jget_dataset(name, scale)
+    tm = Miner(g, device="cpu", fused_level=False)
+    jm = JMiner(jg, backend="xla", fused_level=False)
+    fused = Miner(g, device="cpu")
+    for q in LEVEL_QUERIES:
+        got = tm.count(q)
+        assert got == jm.count(q) == fused.count(q), q
+        assert runner_counters(tm) == runner_counters(jm), q
+
+
+def test_unfused_level_dispatches_one_mark_per_reference():
+    """4-cycle runs a SUB expand level, then a general count level with k = 2
+    references: unfused, each call of the count level launches k = 2 marks
+    instead of one k-reference kernel, so the dispatches rise by k - 1 = 1
+    per count-level call and nothing else changes."""
+    g = get_dataset("email-eu-core", 0.25)
+    plan = Miner(g, device="cpu").compile("4-cycle")
+    assert [(op.kind, engine.WaveRunner._fused_shape(op), len(op.inter) + len(op.sub))
+            for op in plan.ops] == [("expand", "sub", 1), ("count", None, 2)]
+    runs = {}
+    for fl in (True, False):
+        m = Miner(g, device="cpu", fused_level=fl)
+        runs[fl] = (m.count("4-cycle"), dict(m.stats["runner"]))
+    (c1, st1), (c0, st0) = runs[True], runs[False]
+    assert c1 == c0 == 161630
+    count_calls = st1["level_kernel_dispatches"] - st1["device_compactions"]
+    assert count_calls > 0
+    assert st0["level_kernel_dispatches"] - st1["level_kernel_dispatches"] == count_calls
+    assert {k: v for k, v in st0.items() if k != "level_kernel_dispatches"} == \
+        {k: v for k, v in st1.items() if k != "level_kernel_dispatches"}
+
+
+def test_baseline_json_counts_on_email_eu_core():
+    """The JAX package's recorded session counts (benchmarks/baseline.json)."""
+    exact = json.loads((SRC.parent / "benchmarks" / "baseline.json").read_text())["exact"]
+    want = exact["email-eu-core@0.25.session.counts"]
+    m = Miner(get_dataset("email-eu-core", 0.25), device="cpu")
+    got = {"TC": m.count("three-chain"), "TT": m.count("tailed-triangle")}
+    got.update({q: m.count(q) for q in ("diamond", "4-star", "4-cycle", "paw", "4-path")})
+    assert got == {"TC": want["TC"], "TT": want["TT"],
+                   **{q: want["4M"][q] for q in ("diamond", "4-star", "4-cycle", "paw",
+                                                 "4-path")}}
+    assert got["TC"] == 138732 and got["4-path"] == 3252244
+
+
+@pytest.mark.parametrize("name,scale", GRAPHS)
+def test_three_chain_equals_scalar_baselines_and_closed_form(name, scale):
+    """Induced three-chains = Σ_v C(d_v, 2) − 3·triangles."""
+    g, jg = get_dataset(name, scale), jget_dataset(name, scale)
+    m = Miner(g, device="cpu")
+    got = m.count("three-chain-induced")
+    d = g.degrees.numpy().astype(np.int64)
+    assert got == baseline.three_chain_count(g, induced=True) \
+        == jbaseline.three_chain_count(jg, induced=True) \
+        == int((d * (d - 1) // 2).sum()) - 3 * m.count("triangle")
+    assert baseline.three_chain_count(g) == jbaseline.three_chain_count(jg) \
+        == int((d * (d - 1) // 2).sum())
+    assert baseline.tailed_triangle_count(g) == jbaseline.tailed_triangle_count(jg) \
+        == m.count("tailed-triangle")
+    assert baseline.three_motif(g) == jbaseline.three_motif(jg) \
+        == {"triangle": m.count("triangle"), "chain": got}
+
+
+@pytest.mark.parametrize("query", ["triangle-emit", "triangle-sum", "4-clique-emit",
+                                   "4-clique-sum"])
 def test_levels_of_later_slices_raise(query):
+    """Emit levels and aggregate levels belong to later slices."""
+    name, kind = query.rsplit("-", 1)
+    pat = TRIANGLE if name == "triangle" else clique_pattern(4)
+    plan = compile_pattern(pat, emit=True) if kind == "emit" \
+        else compile_pattern(pat, aggregate="sum")
     m = Miner(get_dataset("citeseer", 1.0), device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
-        m.count(query)
+        m.runner.run(plan)
     assert m.stats["runner"]["level_kernel_dispatches"] == 0
 
 
@@ -131,6 +212,29 @@ def test_launch_mine_runs_on_cpu_with_baseline(capsys):
     assert got == 10622
     out = capsys.readouterr().out
     assert "4C = 10622" in out and "baseline(InHouseAutoMine) = 10622" in out
+
+
+@pytest.mark.parametrize("app,want", [("TC", 138732), ("TT", 1769583)])
+def test_launch_mine_level_apps_with_baseline(capsys, app, want):
+    from repro_torch.launch import mine
+    got = mine.main(["--app", app, "--dataset", "email-eu-core", "--scale", "0.25",
+                     "--device", "cpu", "--baseline"])
+    assert got == want
+    out = capsys.readouterr().out
+    assert f"{app} = {want}" in out and f"baseline(InHouseAutoMine) = {want}" in out
+
+
+@pytest.mark.parametrize("app,want", [("DM", 151646), ("CY", 161630), ("PW", 1035535),
+                                      ("S4", 1652486)])
+def test_launch_mine_motif_apps(capsys, app, want):
+    from repro_torch.launch import mine
+    args = ["--app", app, "--dataset", "email-eu-core", "--scale", "0.25", "--device", "cpu"]
+    assert mine.main(args) == want
+    capsys.readouterr()
+    with pytest.raises(SystemExit):
+        mine.main(args + ["--baseline"])
+    out, err = capsys.readouterr()
+    assert "no scalar baseline" in err and out == ""   # refused before mining
 
 
 def _port_modules() -> list[str]:
