@@ -6,22 +6,35 @@
 Phases, each printing its own lines; any mismatch or exception exits
 non-zero:
 
-  1. card    nvidia-smi name and power limit, torch and CUDA versions
-  2. build   nvcc builds every CUDA source of the main path from the
-             checkout (build seconds, -Xptxas -v registers/shared memory)
-  3. parity  each kernel against its plain torch version on the card, bit
-             for bit, on seeded random rows at the main path's shapes (the
-             k-reference kernel over INTER/SUB polarities, excludes and
-             bound-0 rows), with both timed by CUDA events
-  4. main    repro_torch.Miner counts triangles, cliques, three-chains and
-             the 4-motifs on mico, youtube, wiki-vote and email-eu-core at
-             the sizes below, and 4-cycle once more with fused_level=False;
-             each count must equal the JAX package's (mico's three-chains
-             also the closed form); every kernel's launch counter, zeroed
-             just before this phase, must be > 0 after it
-  5. profile mico's queries once more under torch.profiler: device busy
-             time against the untraced wall time, and the top device kernels
-  6. lines   the kernels JSON line, then the final {"ok": true, ...} line
+  1. card     nvidia-smi name and power limit, torch and CUDA versions
+  2. build    nvcc builds every CUDA source of the port from the checkout,
+              one process per source, all started together (build
+              seconds, -Xptxas -v registers/shared memory)
+  3. parity   each kernel against its plain torch version on the card, on
+              seeded random rows at the main path's shapes (the k-reference
+              kernels over INTER/SUB polarities, excludes and bound-0 rows;
+              the value-lane and S_VINTER kernels over every op), bit for
+              bit on dyadic values and within rtol 1e-6 on others, with
+              both versions timed by CUDA events
+  4. main     repro_torch.Miner counts triangles, cliques, three-chains and
+              the 4-motifs on mico, youtube, wiki-vote and email-eu-core at
+              the sizes below, and 4-cycle once more with fused_level=False;
+              each count must equal the JAX package's (mico's three-chains
+              also the closed form)
+  5. weighted Miner.aggregate (sum, max, min) on the same graphs with
+              dyadic edge weights: each value must equal the JAX package's
+              (bit for bit where f32 holds every partial sum, else within
+              rtol 1e-6), with the feed chunks and level dispatches of its
+              unweighted twin and one value-lane launch per leaf call
+  6. sparse   repro_torch.sparse.spmsp_matmul and ttv at the paper's Table
+              VI sizes, against float64 numpy products
+  7. profile  mico's queries once more under torch.profiler: device busy
+              time against the untraced wall time, and the top device kernels
+  8. lines    the kernels JSON line, then the final {"ok": true, ...} line
+
+Every kernel's launch counter is zeroed just before the path that runs it
+(4, 5 or 6) and must be > 0 just after it; the kernels line reports those
+counts.
 
 Imports nothing of JAX or of the JAX package. Needs one card; exits non-zero,
 printing no result, when torch sees no CUDA device or when the repository's
@@ -58,12 +71,64 @@ MAIN_PATH = (
                              ("three-chain", 138732), ("tailed-triangle", 1769583),
                              ("diamond", 151646), ("4-star", 1652486),
                              ("4-cycle", 161630), ("paw", 1035535),
-                             ("4-path", 3252244))),
+                             ("4-path", 3252244), ("5-clique", 5051))),
 )
+# (email-eu-core's 5-clique is the twin of a weighted query below)
 # run again with fused_level=False: one mark launch per reference; 4-cycle's
 # count level has k = 2 references (one INTER, one SUB)
 UNFUSED = ("email-eu-core", 0.25, "4-cycle", 161630, 2)
 PROFILED = ("triangle", "4-clique", "5-clique", "three-chain-induced", "paw")
+
+# The JAX package's weighted aggregates on the same graphs, weights
+# edge_weights(edge_list(g), seed=0), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python -c "from repro.graph import \
+#     get_dataset, with_edge_values, edge_weights; from repro.graph.csr import \
+#     edge_list; from repro.mining.session import Miner; g = get_dataset(NAME, \
+#     SCALE); g = with_edge_values(g, edge_weights(edge_list(g), seed=0)); \
+#     print(repr(Miner(g, backend='xla').aggregate(QUERY, OP)))"
+# (mico's 4-cycle and 4-path are too large for the JAX package on a CPU;
+# wiki-vote's stand in, as for the counts.) email-eu-core's T and 4C sums
+# are benchmarks/baseline.json's values.email-eu-core@0.25.{T,4C}.aggregate.
+WEIGHTED = (
+    ("mico", 1.0, (("triangle", "sum", 17518.3125), ("triangle", "max", 1.0),
+                   ("triangle", "min", 0.015625), ("4-clique", "sum", 310.16845703125),
+                   ("5-clique", "sum", 7.125557899475098),
+                   ("three-chain-induced", "sum", 42446932.6875),
+                   ("paw", "sum", 14872879.95703125))),
+    ("wiki-vote", 1.0, (("4-cycle", "sum", 413501.5546875),
+                        ("4-path", "sum", 158319244.59375))),
+    ("email-eu-core", 0.25, tuple(
+        (q, op, v) for q, vals in (
+            ("triangle", (2835.9375, 1.0)), ("4-clique", (630.774658203125, 1.0)),
+            ("5-clique", (41.270057678222656, 1.0)),
+            ("three-chain-induced", (54665.3125, 1.0)),
+            ("diamond", (14606.169921875, 1.0)), ("paw", (159296.94921875, 1.0)),
+            ("4-cycle", (24847.1953125, 1.0)),
+            ("tailed-triangle", (270491.85546875, 1.0)),
+            ("4-path", (804741.140625, 1.0)))
+        for op, v in zip(("sum", "max"), vals))),
+)
+# pattern edges per weighted query: a value is a product of that many
+# weights in {1/4, 1/2, 3/4, 1}, a multiple of 4^-edges
+PATTERN_EDGES = {"triangle": 3, "4-clique": 6, "5-clique": 10, "three-chain-induced": 2,
+                 "diamond": 5, "paw": 4, "4-cycle": 4, "tailed-triangle": 4, "4-path": 3}
+# the count phase's name for a weighted query's unweighted twin, where it differs
+TWIN = {("email-eu-core", "three-chain-induced"): "three-chain"}
+AGG_OPS = ("sum", "max", "min")
+PROFILED_WEIGHTED = (("triangle", "sum"),)
+
+# the paper's Table VI twins (benchmarks/bench_sparse.py): (name, n, density)
+# square matrices, A from seed 1 and B from seed 2; (name, shape, nnz) CSF
+# tensors from seed 3 against a dense vector from seed 4
+SPARSE_MATRICES = (("circuit204", 1020, 0.0057), ("email-core", 1005, 0.025),
+                   ("fpga", 1220, 0.0040), ("laser", 1500, 0.00055),
+                   ("grid2", 1600, 0.00059))
+SPARSE_TENSORS = (("chicago-s", (600, 24, 240), 50_000),
+                  ("uber-s", (430, 110, 170), 33_000))
+# (B, cap_a, cap_b) of the S_VINTER kernel: spmm's block of 64 x 64 row
+# pairs, a ttv fibre block against the 240-key vector, and long rows
+VINTER_SHAPES = ((4096, 128, 128), (512, 128, 256), (2048, 2048, 2048))
+VINTER_OPS = ("mac", "max", "min")
 
 # (B, cap_a, cap_b): mico's level-1 chunk at the smallest and the largest
 # degree bucket, and youtube's 128-row chunk at its 32768-key bucket
@@ -94,7 +159,33 @@ KERNELS = {
     "intersect_multi": dict(route="cuda",
                             source="src/repro_torch/kernels/csrc/intersect.cu",
                             replaces="src/repro/kernels/intersect.py:326"),
+    "intersect_multi_agg": dict(route="cuda",
+                                source="src/repro_torch/kernels/csrc/intersect.cu",
+                                replaces="src/repro/kernels/intersect.py:482"),
+    "vinter": dict(route="cuda", source="src/repro_torch/kernels/csrc/svinter.cu",
+                   replaces="src/repro/kernels/svinter.py:59"),
 }
+# the count path's kernels (phase 4); the weighted path (5) drives
+# intersect_multi_agg and the sparse path (6) vinter
+COUNT_KERNELS = ("intersect_count", "intersect_expand", "intersect_mark", "intersect_multi")
+
+
+def wrappers() -> dict:
+    """Kernel name -> its wrapper, whose ``launches`` counts kernel launches."""
+    from repro_torch.kernels import intersect as K
+    from repro_torch.kernels import svinter as SV
+    return {name: getattr(SV if name == "vinter" else K, name) for name in KERNELS}
+
+
+def zero_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def exact_sum(value: float, edges: int) -> bool:
+    """Whether every summation order gives ``value`` exactly: positive
+    multiples of 4^-edges, each partial at most the total, below 2^24 units."""
+    return abs(value) < 2.0 ** (24 - 2 * edges)
 
 
 def sorted_rows(gen, rows: int, cap: int, span: int, empty_frac: float = 0.05):
@@ -147,13 +238,21 @@ def phase_card() -> str:
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    lib = build.load("intersect")
-    print(f"[build] intersect.cu: {time.perf_counter() - t0:.2f}s "
-          f"(nvcc {lib.build_seconds:.2f}s) -> {lib.path.name}", flush=True)
-    for ln in lib.ptxas_report.splitlines():
-        print(f"[build]   {ln.strip()}", flush=True)
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(build.load, names)))
+    print(f"[build] {', '.join(n + '.cu' for n in names)} in parallel: "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    for name, lib in libs.items():
+        print(f"[build] {name}.cu: nvcc {lib.build_seconds:.2f}s -> {lib.path.name}",
+              flush=True)
+        for ln in lib.ptxas_report.splitlines():
+            print(f"[build]   {ln.strip()}", flush=True)
 
 
 def _window_keys(x, bounds, lbounds) -> int:
@@ -273,15 +372,187 @@ def _parity_multi(K, report, gen, B, cap_a, k, cap_b):
                                          bound_by=by, library_ms=None)
 
 
+def values_like(gen, keys, dyadic: bool = True):
+    """f32 values beside ``keys`` (0.0 on SENTINEL): dyadic ({1/4, .., 1}:
+    products and these sums are exact in f32 in any order), else in
+    [0.5, 2) (positive, so a relative tolerance holds for sums)."""
+    if dyadic:
+        v = torch.randint(1, 5, keys.shape, generator=gen, device=keys.device) * 0.25
+    else:
+        v = torch.rand(keys.shape, generator=gen, device=keys.device) * 1.5 + 0.5
+    return torch.where(keys != SENTINEL, v.float(), 0.0)
+
+
+def _max_err(got, want) -> float:
+    return max((g.double() - w.double()).abs().max().item() if g.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+def _parity_agg(K, report, gen, B, cap_a, k, cap_b):
+    """The value-lane kernel at one shape, over every polarity and op, with
+    and without bounds and excludes: dyadic values bit for bit; values in
+    [0.5, 2) with marks, counts, max and min bit for bit and sums within
+    rtol 1e-6 (f32 row sums in two orders); timed at MULTI_TIMED, op sum."""
+    span = 2 * cap_b
+    a = sorted_rows(gen, B, cap_a, span)
+    bs_all = torch.stack([sorted_rows(gen, B, cap_b, span) for _ in range(3)])
+    bounds, lbounds = bound_vectors(gen, B, span)
+    excl = _excludes(gen, a)
+    av, bv_all = values_like(gen, a), values_like(gen, bs_all)
+    sc = values_like(gen, torch.zeros_like(bounds))
+    for pol in MULTI_POLS:
+        bs, bv = bs_all[: len(pol)].contiguous(), bv_all[: len(pol)].contiguous()
+        for bd, lbd, ex in ((bounds, lbounds, excl), (None, None, excl),
+                            (bounds, lbounds, None), (None, None, None)):
+            for op in AGG_OPS:
+                got = K.intersect_multi_agg(a, bs, pol, av, bv, sc, op, bd, lbd, ex)
+                want = K.intersect_multi_agg_ref(a, bs, pol, av, bv, sc, op, bd, lbd, ex)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                _record(report, "intersect_multi_agg", err)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(
+                        f"[parity] MISMATCH intersect_multi_agg B={B} cap_a={cap_a} "
+                        f"cap_b={cap_b} pol={pol} op={op} bounds="
+                        f"{'set' if bd is not None else 'None'} excludes="
+                        f"{'set' if ex is not None else 'None'}: {err}")
+    pol = (1,) * (k - 1) + (0,)
+    bs, bv = bs_all[:k].contiguous(), bv_all[:k].contiguous()
+    nav, nbv, nsc = (values_like(gen, x, dyadic=False)
+                     for x in (a, bs, torch.zeros_like(bounds)))
+    for op in AGG_OPS:
+        got = K.intersect_multi_agg(a, bs, pol, nav, nbv, nsc, op, bounds, lbounds, excl)
+        want = K.intersect_multi_agg_ref(a, bs, pol, nav, nbv, nsc, op, bounds, lbounds,
+                                         excl)
+        torch.cuda.synchronize()
+        _record(report, "intersect_multi_agg", _max_err(got, want))
+        vals_ok = torch.allclose(got[2], want[2], rtol=1e-6, atol=0) if op == "sum" \
+            else torch.equal(got[2], want[2])
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and vals_ok):
+            raise SystemExit(f"[parity] MISMATCH intersect_multi_agg non-dyadic B={B} "
+                             f"cap_a={cap_a} cap_b={cap_b} op={op}: {_max_err(got, want)}")
+    print(f"[parity] intersect_multi_agg B={B} cap_a={cap_a} cap_b={cap_b} pols "
+          f"{list(MULTI_POLS)} x {list(AGG_OPS)}: dyadic values equal bit for bit; "
+          f"values in [0.5, 2) at pol={pol}: sums within rtol 1e-6, the rest bit "
+          f"for bit", flush=True)
+    args = (a, bs, pol, av, bv, sc, "sum", bounds, lbounds, excl)
+    ms = cuda_ms(lambda: K.intersect_multi_agg(*args))
+    plain_ms = cuda_ms(lambda: K.intersect_multi_agg_ref(*args))
+    a_live = _window_keys(a, bounds, lbounds)
+    ref_live = _window_keys(bs, bounds, lbounds)
+    inter_live = _window_keys(bs[: k - 1], bounds, lbounds)
+    # keys of A and the refs, values of A and the INTER refs, the scale and
+    # the excludes in; mark, counts and vals out
+    bound_ms, by = _bound(B, cap_b, a_live + ref_live, a_live, k, B * cap_a * 4 + B * 8,
+                          extra_in=a_live + inter_live + B + excl.numel())
+    print(f"[parity] intersect_multi_agg B={B} cap_a={cap_a} k={k} cap_b={cap_b} "
+          f"pol={pol} op=sum: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+          f"{bound_ms:.4f} ms", flush=True)
+    if (B, cap_a, k, cap_b) == MULTI_TIMED:
+        report["intersect_multi_agg"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                             bound_by=by, library_ms=None)
+
+
+def _vinter_bound(ak, bk, rows: int) -> tuple[float, str]:
+    """Live keys and values of both operands read once, 4 bytes a row
+    written; or log2 |B_i| compares per live A key at the int rate."""
+    a_live, b_live = int((ak != SENTINEL).sum()), int((bk != SENTINEL).sum())
+    bytes_ms = ((a_live + b_live) * 8 + rows * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = a_live * max(1, (bk.shape[1] - 1).bit_length()) / INT_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _parity_vinter(SV, report, gen, B, cap_a, cap_b):
+    """S_VINTER at one shape for every op: dyadic values bit for bit (B's
+    rows also as one row expanded over the batch), values in [0.5, 2)
+    within rtol 1e-6."""
+    span = cap_a + cap_b
+    ak, bk = sorted_rows(gen, B, cap_a, span), sorted_rows(gen, B, cap_b, span)
+    va, vb = values_like(gen, ak), values_like(gen, bk)
+    nva, nvb = values_like(gen, ak, dyadic=False), values_like(gen, bk, dyadic=False)
+    b1, vb1 = bk[:1].expand(B, cap_b), vb[:1].expand(B, cap_b)
+    for op in VINTER_OPS:
+        for args in ((ak, va, bk, vb), (ak, va, b1, vb1)):
+            got, want = SV.vinter(*args, op), SV.vinter_ref(*args, op)
+            torch.cuda.synchronize()
+            _record(report, "vinter", _max_err([got], [want]))
+            if not torch.equal(got, want):
+                raise SystemExit(f"[parity] MISMATCH vinter B={B} caps=({cap_a},{cap_b}) "
+                                 f"op={op} b stride {args[2].stride(0)}")
+        got, want = SV.vinter(ak, nva, bk, nvb, op), SV.vinter_ref(ak, nva, bk, nvb, op)
+        torch.cuda.synchronize()
+        _record(report, "vinter", _max_err([got], [want]))
+        if not torch.allclose(got, want, rtol=1e-6, atol=0):
+            raise SystemExit(f"[parity] MISMATCH vinter non-dyadic B={B} "
+                             f"caps=({cap_a},{cap_b}) op={op}: {_max_err([got], [want])}")
+    args = (ak, va, bk, vb)
+    ms, plain_ms = cuda_ms(lambda: SV.vinter(*args)), cuda_ms(lambda: SV.vinter_ref(*args))
+    bound_ms, _ = _vinter_bound(ak, bk, B)
+    print(f"[parity] vinter B={B} caps=({cap_a},{cap_b}) ops {list(VINTER_OPS)}: dyadic "
+          f"values equal bit for bit, also against one broadcast row; values in "
+          f"[0.5, 2) within rtol 1e-6; mac {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+          f"plain, bound {bound_ms:.4f} ms", flush=True)
+
+
+def dense_matrix(n: int, density: float, seed: int):
+    """benchmarks/bench_sparse.py's Table VI twin: an (n, n) float32 matrix
+    with normal entries at the given density."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random((n, n)) < density,
+                    rng.normal(size=(n, n)), 0.0).astype(np.float32)
+
+
+def _time_vinter_on_spmm_block(SV, report):
+    """S_VINTER at the shape spmm gives it, on real data: the first 64 x 64
+    block of email-core's row x column pairs (B = 4096, caps 128, op mac),
+    beside torch.sparse.mm of the same block (the library's sparse product)."""
+    import numpy as np
+
+    from repro_torch.sparse import from_dense
+    a_d, b_d = dense_matrix(1005, 0.025, 1), dense_matrix(1005, 0.025, 2)
+    a, b = from_dense(a_d), from_dense(b_d, "csc")
+    rows = np.nonzero(np.diff(a.indptr) > 0)[0][:64]
+    cols = np.nonzero(np.diff(b.indptr) > 0)[0][:64]
+    ak, av, bk, bv = (torch.from_numpy(x).to(DEVICE)
+                      for x in (*a.padded_rows(rows), *b.padded_rows(cols)))
+    nr, nc = len(rows), len(cols)
+    args = (ak.repeat_interleave(nc, 0), av.repeat_interleave(nc, 0), bk.repeat(nr, 1),
+            bv.repeat(nr, 1))
+    ms = cuda_ms(lambda: SV.vinter(*args), reps=50)
+    plain_ms = cuda_ms(lambda: SV.vinter_ref(*args), reps=50)
+    bound_ms, by = _vinter_bound(args[0], args[2], nr * nc)
+    a_sp = torch.from_numpy(a_d[rows]).to(DEVICE).to_sparse()
+    b_sp = torch.from_numpy(b_d[:, cols]).to(DEVICE).to_sparse()
+    block = torch.sparse.mm(a_sp, b_sp).to_dense().reshape(-1)
+    got = SV.vinter(*args)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, block, rtol=1e-5, atol=1e-6):
+        raise SystemExit(f"[parity] vinter spmm block != torch.sparse.mm: "
+                         f"{(got - block).abs().max().item()}")
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a_sp, b_sp), reps=50)
+    print(f"[parity] vinter email-core spmm block B={nr * nc} caps=({ak.shape[1]},"
+          f"{bk.shape[1]}) mac: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+          f"{library_ms:.4f} ms torch.sparse.mm of the block, bound {bound_ms:.4f} ms",
+          flush=True)
+    report["vinter"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                            library_ms=library_ms)
+
+
 def phase_parity() -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.kernels import intersect as K
+    from repro_torch.kernels import svinter as SV
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     report = {name: {"max_abs_err": 0} for name in KERNELS}
     for B, cap_a, cap_b in PARITY_SHAPES:
         _parity_pair(K, report, gen, B, cap_a, cap_b)
     for shape in MULTI_SHAPES:
         _parity_multi(K, report, gen, *shape)
+        _parity_agg(K, report, gen, *shape)
+    for shape in VINTER_SHAPES:
+        _parity_vinter(SV, report, gen, *shape)
+    _time_vinter_on_spmm_block(SV, report)
     return report
 
 
@@ -310,10 +581,11 @@ def _mine(miner, kernels, label: str, query: str, want: int):
     dt = time.perf_counter() - t0
     launched = [k.launches - n for k, n in zip(kernels, before)]
     st = {k: v - st0[k] for k, v in miner.stats["runner"].items()}
+    st.update(feed_chunks=miner.metrics.counter("feed_chunks").value - chunks0, wall=dt)
     print(f"[main] {label} {query} = {got} (JAX package: {want}) {dt:.3f}s wall; "
           "launches " + " ".join(f"{k.__name__.removeprefix('intersect_')} {n}"
                                  for k, n in zip(kernels, launched))
-          + f"; feed_chunks {miner.metrics.counter('feed_chunks').value - chunks0} "
+          + f"; feed_chunks {st['feed_chunks']} "
           f"exec_misses {st['exec_misses']} items {st['items']} dispatches "
           f"{st['level_kernel_dispatches']} compactions {st['device_compactions']}",
           flush=True)
@@ -322,14 +594,13 @@ def _mine(miner, kernels, label: str, query: str, want: int):
     return got, launched, st
 
 
-def phase_main_path(graphs: dict) -> dict:
-    """Drive the port's Miner; every count must equal the JAX package's."""
+def phase_main_path(graphs: dict):
+    """Drive the port's Miner; every count must equal the JAX package's.
+    Returns (per-query results, launches per count-path kernel)."""
     from repro_torch import Miner
-    from repro_torch.kernels import intersect as K
 
-    kernels = tuple(getattr(K, name) for name in KERNELS)
-    for k in kernels:
-        k.launches = 0
+    kernels = tuple(wrappers()[name] for name in COUNT_KERNELS)
+    zero_launches()
     counts = {}
     for name, scale, queries in MAIN_PATH:
         miner = Miner(graphs[name, scale], device=DEVICE)
@@ -351,7 +622,7 @@ def phase_main_path(graphs: dict) -> dict:
     _, launched, st = _mine(miner, kernels, f"{name} x{scale} fused_level=False",
                             query, want)
     _, f_launched, f_st = counts[name, scale, query]
-    mark, multi = list(KERNELS).index("intersect_mark"), list(KERNELS).index("intersect_multi")
+    mark, multi = COUNT_KERNELS.index("intersect_mark"), COUNT_KERNELS.index("intersect_multi")
     calls = f_launched[multi]
     rise = st["level_kernel_dispatches"] - f_st["level_kernel_dispatches"]
     print(f"[main] fused_level=False {query}: dispatches {st['level_kernel_dispatches']} "
@@ -366,35 +637,144 @@ def phase_main_path(graphs: dict) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise SystemExit(f"[main] {name} was never launched on the main path")
-    return launches
+    return counts, launches
 
 
-def phase_profile(graphs: dict) -> None:
-    """Where mico's queries spend the card's time: a warm untraced run, then
-    one run under torch.profiler; device busy = summed device self time."""
+def weighted(g):
+    """``g`` with the dyadic edge weights the JAX constants were taken with."""
+    from repro_torch.graph import edge_list, edge_weights, with_edge_values
+    return with_edge_values(g, edge_weights(edge_list(g), seed=0))
+
+
+def phase_weighted(graphs: dict, counts: dict) -> dict:
+    """Drive Miner.aggregate; every value must equal the JAX package's, with
+    its unweighted twin's feed chunks and level dispatches (tailed-triangle's
+    count plan folds its last level into a degree factor, which a weighted
+    plan cannot), and one value-lane launch per aggregate-leaf call with
+    references (tailed-triangle's leaf has none: the plain form)."""
+    from repro_torch import Miner
+
+    agg = wrappers()["intersect_multi_agg"]
+    zero_launches()
+    for name, scale, queries in WEIGHTED:
+        miner = Miner(weighted(graphs[name, scale]), device=DEVICE)
+        lanes = miner.metrics.counter("value_lane_dispatches")
+        chunks = miner.metrics.counter("feed_chunks")
+        for query, op, want in queries:
+            n0, v0, c0 = agg.launches, lanes.value, chunks.value
+            st0 = dict(miner.stats["runner"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = miner.aggregate(query, op)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            calls, launched = lanes.value - v0, agg.launches - n0
+            disp = miner.stats["runner"]["level_kernel_dispatches"] - st0["level_kernel_dispatches"]
+            _, _, twin = counts[name, scale, TWIN.get((name, query), query)]
+            exact = op != "sum" or exact_sum(want, PATTERN_EDGES[query])
+            rule = "bit for bit" if exact else "rtol 1e-6"
+            print(f"[weighted] {name} x{scale} {query} {op} = {got!r} (JAX package: "
+                  f"{want!r}, {rule}) {dt:.3f}s wall (count {twin['wall']:.3f}s); "
+                  f"multi_agg launches {launched} over {calls} leaf calls; feed_chunks "
+                  f"{chunks.value - c0} (count {twin['feed_chunks']}) dispatches {disp} "
+                  f"(count {twin['level_kernel_dispatches']})", flush=True)
+            if not (got == want if exact else abs(got - want) <= 1e-6 * abs(want)):
+                raise SystemExit(f"[weighted] MISMATCH {name} {query} {op}: {got!r} != "
+                                 f"{want!r}")
+            if calls <= 0 or launched != (0 if query == "tailed-triangle" else calls):
+                raise SystemExit(f"[weighted] {name} {query}: {launched} value-lane "
+                                 f"launches for {calls} leaf calls")
+            if query != "tailed-triangle" and (
+                    chunks.value - c0 != twin["feed_chunks"]
+                    or disp != twin["level_kernel_dispatches"]):
+                raise SystemExit(f"[weighted] {name} {query}: feed chunks or dispatches "
+                                 "differ from the unweighted twin's")
+    if agg.launches <= 0:
+        raise SystemExit("[weighted] intersect_multi_agg was never launched")
+    return {"intersect_multi_agg": agg.launches}
+
+
+def phase_sparse() -> dict:
+    """spmsp_matmul and ttv at the Table VI sizes against float64 numpy
+    (rtol 1e-5, atol 1e-6)."""
+    import numpy as np
+
+    from repro_torch.sparse import from_dense, random_csf, spmsp_matmul, ttv
+    vinter = wrappers()["vinter"]
+    zero_launches()
+    for name, n, density in SPARSE_MATRICES:
+        a_d, b_d = dense_matrix(n, density, 1), dense_matrix(n, density, 2)
+        a, b = from_dense(a_d), from_dense(b_d, "csc")
+        n0 = vinter.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = spmsp_matmul(a, b, device=DEVICE)
+        dt = time.perf_counter() - t0
+        want = a_d.astype(np.float64) @ b_d.astype(np.float64)
+        err = float(np.abs(c - want).max())
+        print(f"[sparse] spmm {name} n={n} density={density}: nnz {a.nnz} x {b.nnz}, "
+              f"{dt:.3f}s wall, vinter launches {vinter.launches - n0}, max abs err "
+              f"{err:.3g} against float64 numpy", flush=True)
+        if not np.allclose(c, want, rtol=1e-5, atol=1e-6):
+            raise SystemExit(f"[sparse] MISMATCH spmm {name}: {err}")
+    for name, shape, nnz in SPARSE_TENSORS:
+        t = random_csf(shape, nnz, seed=3)
+        vec = np.random.default_rng(4).normal(size=shape[2]).astype(np.float32)
+        n0 = vinter.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ii, jj, vv = ttv(t, np.arange(shape[2], dtype=np.int32), vec, device=DEVICE)
+        dt = time.perf_counter() - t0
+        dense = np.zeros(shape)
+        fib = np.repeat(np.arange(t.num_fibers), np.diff(t.fiber_ptr))
+        dense[t.i_ids[fib], t.j_ids[fib], t.k_ids] = t.vals
+        want = (dense @ vec.astype(np.float64))[ii, jj]
+        err = float(np.abs(vv - want).max())
+        print(f"[sparse] ttv {name} {shape} nnz={nnz}: {t.num_fibers} fibres, {dt:.3f}s "
+              f"wall, vinter launches {vinter.launches - n0}, max abs err {err:.3g} "
+              "against float64 numpy", flush=True)
+        if not np.allclose(vv, want, rtol=1e-5, atol=1e-6):
+            raise SystemExit(f"[sparse] MISMATCH ttv {name}: {err}")
+    if vinter.launches <= 0:
+        raise SystemExit("[sparse] vinter was never launched")
+    return {"vinter": vinter.launches}
+
+
+def _profile(label: str, run) -> None:
+    """A warm untraced run of ``run()``, then one under torch.profiler;
+    device busy = summed device self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run()                                       # executables built
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"[profile] {label}: {wall:.1f} ms wall untraced, device busy {busy:.1f} ms "
+          f"= {100 * busy / wall:.1f}% of it; top: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms "
+                      f"x{e.count}" for e in top), flush=True)
+
+
+def phase_profile(graphs: dict) -> None:
+    """Where mico's queries spend the card's time, counted and weighted."""
     from repro_torch import Miner
     miner = Miner(graphs["mico", 1.0], device=DEVICE)
     for query in PROFILED:
-        miner.count(query)                      # executables built
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        miner.count(query)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            miner.count(query)
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        busy = sum(e.self_device_time_total for e in dev) / 1e3
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-        print(f"[profile] mico x1.0 {query}: {wall:.1f} ms wall untraced, device "
-              f"busy {busy:.1f} ms = {100 * busy / wall:.1f}% of it; top: "
-              + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms "
-                          f"x{e.count}" for e in top), flush=True)
+        _profile(f"mico x1.0 {query}", lambda q=query: miner.count(q))
+    wminer = Miner(weighted(graphs["mico", 1.0]), device=DEVICE)
+    for query, op in PROFILED_WEIGHTED:
+        _profile(f"mico x1.0 {query} {op} (weighted)",
+                 lambda q=query, o=op: wminer.aggregate(q, o))
 
 
 def main() -> int:
@@ -410,7 +790,9 @@ def main() -> int:
     phase_build()
     report = phase_parity()
     graphs = build_graphs()
-    launches = phase_main_path(graphs)
+    counts, launches = phase_main_path(graphs)
+    launches.update(phase_weighted(graphs, counts))
+    launches.update(phase_sparse())
     phase_profile(graphs)
     rows = [{"name": name, **KERNELS[name], "launches": launches[name],
              "parity": True, **report[name]} for name in KERNELS]

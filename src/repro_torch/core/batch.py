@@ -167,3 +167,74 @@ def batch_level_compact(rows_a, bs, pol, bounds, lbounds, excludes,
     contract for any k-reference level."""
     return batch_compact_scan(rows_a, level_keep(rows_a, bs, pol, bounds, lbounds,
                                                  excludes), out_cap, out_items)
+
+
+F32_MAX = 3.4e38   # masked-reduce identities of the value lane (finite, as
+                   # in the JAX package; rounded to f32 wherever it lands)
+AGG_OPS = ("sum", "max", "min")
+
+
+def _matched_vals(rows_a: torch.Tensor, rows_b: torch.Tensor,
+                  vals_b: torch.Tensor) -> torch.Tensor:
+    """Per A-slot matched value in (B_i, V_i): vals_b at the matching key,
+    0.0 on a miss or on a SENTINEL slot of A."""
+    idx = torch.searchsorted(rows_b, rows_a).clamp_(max=rows_b.shape[1] - 1)
+    found = (rows_b.gather(1, idx) == rows_a) & (rows_a != SENTINEL)
+    return torch.where(found, vals_b.gather(1, idx), 0.0)
+
+
+def level_agg(rows_a, bs, pol, a_vals, b_vals, scale, op: str = "sum",
+              bounds=None, lbounds=None, excludes=None):
+    """A k-reference level's keep mask and its per-row value aggregate
+    (the plain version of ``intersect_multi_agg``) -> (keep, vals).
+
+    Each kept slot carries ``a_vals · Π_{INTER r} matched_val_r · scale[row]``,
+    multiplied in that order, and ``vals`` reduces the kept slots per row
+    with ``op`` (sum / max / min; an empty row gives the identity 0.0 /
+    -3.4e38 / +3.4e38). ``b_vals`` is the (k, B, cap_b) value stack aligned
+    with ``bs`` (SUB refs' values are ignored; None when k = 0)."""
+    if op not in AGG_OPS:
+        raise ValueError(f"unknown SVPU aggregate {op!r}")
+    keep = level_keep(rows_a, bs, pol, bounds, lbounds, excludes)
+    contrib = a_vals.float()
+    for r, p in enumerate(pol):
+        if p:
+            contrib = contrib * _matched_vals(rows_a, bs[r], b_vals[r])
+    contrib = contrib * scale.float()[:, None]
+    if op == "sum":
+        vals = torch.where(keep, contrib, 0.0).sum(dim=1, dtype=torch.float32)
+    elif op == "max":
+        vals = torch.where(keep, contrib, -F32_MAX).amax(dim=1)
+    else:
+        vals = torch.where(keep, contrib, F32_MAX).amin(dim=1)
+    return keep, vals
+
+
+def batch_level_agg(rows_a, bs, pol, a_vals, b_vals, scale, op: str = "sum",
+                    bounds=None, lbounds=None, excludes=None):
+    """Fused multi-operand level count + SVPU value aggregate -> (counts,
+    vals), ``level_agg``'s contract."""
+    keep, vals = level_agg(rows_a, bs, pol, a_vals, b_vals, scale, op, bounds,
+                           lbounds, excludes)
+    return keep.sum(dim=1, dtype=torch.int32), vals
+
+
+VINTER_OPS = ("mac", "max", "min")
+
+
+def batch_vinter(rows_a, vals_a, rows_b, vals_b, op: str = "mac") -> torch.Tensor:
+    """Batched S_VINTER: out[i] = Σ_{k ∈ A_i ∩ B_i} op(va, vb), op mac
+    (va·vb), max or min; SENTINEL slots of A never match."""
+    if op not in VINTER_OPS:
+        raise ValueError(f"unknown SVPU op {op!r}")
+    rows_b, vals_b = rows_b.contiguous(), vals_b.contiguous()
+    idx = torch.searchsorted(rows_b, rows_a).clamp_(max=rows_b.shape[1] - 1)
+    found = (rows_b.gather(1, idx) == rows_a) & (rows_a != SENTINEL)
+    vb = vals_b.gather(1, idx)
+    if op == "mac":
+        terms = vals_a * vb
+    elif op == "max":
+        terms = torch.maximum(vals_a, vb)
+    else:
+        terms = torch.minimum(vals_a, vb)
+    return torch.where(found, terms, 0.0).sum(dim=1, dtype=torch.float32)

@@ -3,9 +3,11 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
 ``ctypes``. Libraries land in ``build/kernels/`` at the repository root,
-named by the SHA-256 of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. ``nvcc``'s ``-Xptxas -v``
-report (registers, shared memory, spills) is kept beside each library.
+named by the SHA-256 of the source, the headers beside it (``*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills)
+is kept beside each library. ``launch`` calls one kernel's C entry point on
+a device's current stream.
 
 Nothing here runs at import: the tests import every module on machines
 with no CUDA toolkit.
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -44,8 +48,9 @@ class KernelLibrary:
 
     def __init__(self, source: Path):
         self.source = source
-        digest = hashlib.sha256(source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text = source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         self.path = BUILD_DIR / f"{source.stem}-{digest}.so"
         self.log_path = self.path.with_suffix(".log")
         self.build_seconds = 0.0      # 0.0: loaded from an earlier build
@@ -84,3 +89,19 @@ def load(name: str) -> KernelLibrary:
     if lib is None:
         lib = _LOADED[name] = KernelLibrary(CSRC / f"{name}.cu")
     return lib
+
+
+def launch(name: str, symbol: str, device: torch.device, tensors, ints) -> None:
+    """Launch ``symbol`` of ``csrc/<name>.cu`` on ``device``'s current stream:
+    ``symbol(*tensor pointers (None -> NULL), *ints, stream)``; raise on the
+    CUDA error code it returns."""
+    fn = getattr(load(name).lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * len(tensors) \
+            + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")

@@ -9,6 +9,8 @@ kernels of ``repro/kernels/intersect.py`` on the mining main path:
   ``intersect_mark``    <- ``intersect_mark_pallas``   -> mark (B, cap_a)
   ``intersect_multi``   <- ``intersect_multi_pallas``  -> (mark (B, cap_a),
                                                            counts (B,))
+  ``intersect_multi_agg`` <- ``intersect_multi_agg_pallas`` -> (mark, counts,
+                                                           vals (B,) f32)
 
 Contract of the first three: ``a`` (B, cap_a) and ``b`` (B, cap_b) are
 int32 rows, each a sorted set padded with SENTINEL, caps multiples of 128.
@@ -16,7 +18,8 @@ Slot s of row i counts iff ``a[i,s] != SENTINEL``,
 ``lbounds[i] < a[i,s] < bounds[i]`` and ``a[i,s]`` is in ``b[i]``.
 ``bounds=None`` means SENTINEL, ``lbounds=None`` means -1; bound 0 kills a
 row. ``intersect_multi`` takes a (k, B, cap_b) stack of references with an
-INTER-first polarity instead of ``b`` (see its docstring).
+INTER-first polarity instead of ``b`` (see its docstring);
+``intersect_multi_agg`` adds the SVPU value lane to it.
 
 Each wrapper picks its path by the device of its tensors: a CPU tensor
 takes the plain version beside it (``*_ref``, ``torch.searchsorted``
@@ -25,16 +28,15 @@ based); a CUDA tensor launches the kernel on the current stream, or raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.core.batch import inter_keep, level_keep
+from repro_torch.core.batch import AGG_OPS, inter_keep, level_agg, level_keep
 from repro_torch.core.stream import LANE
 
-from .build import load
+from .build import launch
 
 MAX_REFS = 8     # kMaxRefs of csrc/intersect.cu: references per k-ref level
+AGG_IDS = {op: i for i, op in enumerate(AGG_OPS)}   # op operand of the agg kernel
 
 
 def intersect_count_ref(a, b, bounds=None, lbounds=None) -> torch.Tensor:
@@ -57,6 +59,15 @@ def intersect_multi_ref(a, bs, pol, bounds=None, lbounds=None, excludes=None):
     """Plain torch version of ``intersect_multi``: (mark int32, counts)."""
     keep = level_keep(a, bs, pol, bounds, lbounds, excludes)
     return keep.to(torch.int32), keep.sum(dim=1, dtype=torch.int32)
+
+
+def intersect_multi_agg_ref(a, bs, pol, a_vals, b_vals, scale, op="sum",
+                            bounds=None, lbounds=None, excludes=None):
+    """Plain torch version of ``intersect_multi_agg``: (mark int32, counts,
+    vals f32)."""
+    keep, vals = level_agg(a, bs, pol, a_vals, b_vals, scale, op, bounds,
+                           lbounds, excludes)
+    return keep.to(torch.int32), keep.sum(dim=1, dtype=torch.int32), vals
 
 
 def _check_rows(name: str, t: torch.Tensor, a: torch.Tensor, ndim: int = 2) -> None:
@@ -114,23 +125,19 @@ def _check_multi(a: torch.Tensor, bs: torch.Tensor, pol, bounds, lbounds,
     _check_bounds(a, bounds, lbounds)
 
 
-def _ptr(t) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
-def _launch(symbol: str, a, tensors, ints) -> None:
-    """Launch one kernel of ``csrc/intersect.cu`` on ``a``'s current stream:
-    ``symbol(*tensor pointers (None -> NULL), *ints, stream)``."""
-    fn = getattr(load("intersect").lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * len(tensors) \
-            + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(*(_ptr(t) for t in tensors), *ints, stream)
-    if rc != 0:
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+def _check_multi_agg(a, bs, pol, a_vals, b_vals, scale, op, bounds, lbounds,
+                     excludes) -> None:
+    """Raise on anything the value-lane kernel does not take."""
+    _check_multi(a, bs, pol, bounds, lbounds, excludes)
+    if op not in AGG_IDS:
+        raise ValueError(f"unknown SVPU aggregate {op!r}; use one of {AGG_OPS}")
+    for name, t, shape in (("a_vals", a_vals, a.shape), ("b_vals", b_vals, bs.shape),
+                           ("scale", scale, a.shape[:1])):
+        if t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous() \
+                or t.device != a.device:
+            raise ValueError(f"{name} must be a contiguous {tuple(shape)} float32 "
+                             f"tensor on {a.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def intersect_count(a, b, bounds=None, lbounds=None) -> torch.Tensor:
@@ -140,8 +147,8 @@ def intersect_count(a, b, bounds=None, lbounds=None) -> torch.Tensor:
         return intersect_count_ref(a, b, bounds, lbounds)
     counts = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
     if a.shape[0]:
-        _launch("repro_intersect_count", a, (a, b, bounds, lbounds, counts),
-                (*a.shape, b.shape[1]))
+        launch("intersect", "repro_intersect_count", a.device,
+               (a, b, bounds, lbounds, counts), (*a.shape, b.shape[1]))
         intersect_count.launches += 1
     return counts
 
@@ -158,8 +165,8 @@ def intersect_expand(a, b, bounds=None, lbounds=None):
     mark = torch.empty(a.shape, dtype=torch.int32, device=a.device)
     counts = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
     if a.shape[0]:
-        _launch("repro_intersect_expand", a,
-                (a, b, bounds, lbounds, mark, counts), (*a.shape, b.shape[1]))
+        launch("intersect", "repro_intersect_expand", a.device,
+               (a, b, bounds, lbounds, mark, counts), (*a.shape, b.shape[1]))
         intersect_expand.launches += 1
     return mark, counts
 
@@ -175,8 +182,8 @@ def intersect_mark(a, b, bounds=None, lbounds=None) -> torch.Tensor:
         return intersect_mark_ref(a, b, bounds, lbounds)
     mark = torch.empty(a.shape, dtype=torch.int32, device=a.device)
     if a.shape[0]:
-        _launch("repro_intersect_mark", a, (a, b, bounds, lbounds, mark),
-                (*a.shape, b.shape[1]))
+        launch("intersect", "repro_intersect_mark", a.device,
+               (a, b, bounds, lbounds, mark), (*a.shape, b.shape[1]))
         intersect_mark.launches += 1
     return mark
 
@@ -204,12 +211,44 @@ def intersect_multi(a, bs, pol, bounds=None, lbounds=None, excludes=None):
     counts = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
     if a.shape[0]:
         n_excl = 0 if excludes is None else excludes.shape[1]
-        _launch("repro_intersect_multi", a,
-                (a, bs, bounds, lbounds, excludes if n_excl else None, mark,
-                 counts),
-                (*a.shape, bs.shape[2], len(pol), sum(pol), n_excl))
+        launch("intersect", "repro_intersect_multi", a.device,
+               (a, bs, bounds, lbounds, excludes if n_excl else None, mark, counts),
+               (*a.shape, bs.shape[2], len(pol), sum(pol), n_excl))
         intersect_multi.launches += 1
     return mark, counts
 
 
 intersect_multi.launches = 0
+
+
+def intersect_multi_agg(a, bs, pol, a_vals, b_vals, scale, op="sum", bounds=None,
+                        lbounds=None, excludes=None):
+    """``intersect_multi`` plus the SVPU value lane -> (mark, counts, vals).
+
+    Each kept slot s of row i carries
+    ``a_vals[i, s] · Π_{INTER refs r} matched_val_r(i, s) · scale[i]``,
+    multiplied in that order, and ``vals[i]`` reduces the kept slots with
+    ``op`` ('sum' / 'max' / 'min'; a row with none gives 0.0 / -3.4e38 /
+    +3.4e38). ``a_vals`` is (B, cap_a) f32, ``b_vals`` the (k, B, cap_b) f32
+    value stack aligned with ``bs`` (SUB refs' values are not read),
+    ``scale`` (B,) f32. Returns (mark (B, cap_a) int32, counts (B,) int32,
+    vals (B,) f32).
+    """
+    _check_multi_agg(a, bs, pol, a_vals, b_vals, scale, op, bounds, lbounds, excludes)
+    if a.device.type == "cpu":
+        return intersect_multi_agg_ref(a, bs, pol, a_vals, b_vals, scale, op, bounds,
+                                       lbounds, excludes)
+    mark = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    counts = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
+    vals = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
+    if a.shape[0]:
+        n_excl = 0 if excludes is None else excludes.shape[1]
+        launch("intersect", "repro_intersect_multi_agg", a.device,
+               (a, bs, bounds, lbounds, excludes if n_excl else None, a_vals, b_vals,
+                scale, mark, counts, vals),
+               (*a.shape, bs.shape[2], len(pol), sum(pol), n_excl, AGG_IDS[op]))
+        intersect_multi_agg.launches += 1
+    return mark, counts, vals
+
+
+intersect_multi_agg.launches = 0

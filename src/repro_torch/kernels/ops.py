@@ -8,12 +8,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.batch import (batch_compact_scan, batch_level_compact,
-                                    batch_level_count)
+from repro_torch.core.batch import (batch_compact_scan, batch_level_agg,
+                                    batch_level_compact, batch_level_count)
 from repro_torch.core.stream import SENTINEL
 
 from .intersect import (intersect_count, intersect_expand, intersect_mark,
-                        intersect_multi)
+                        intersect_multi, intersect_multi_agg)
+from .svinter import vinter
 
 
 def xinter_count(a, b, bounds=None, lbounds=None):
@@ -115,3 +116,30 @@ def xlevel_compact(a, bs, pol, bounds=None, out_cap: int | None = None,
                                    cap, items)
     mark, _ = intersect_multi(a, bs, pol, bounds, lbounds, excludes)
     return batch_compact_scan(a, mark > 0, cap, items)
+
+
+def xlevel_agg(a, bs, pol, a_vals, b_vals, scale, op: str = "sum", bounds=None,
+               lbounds=None, excludes=None):
+    """Fused multi-operand level count + SVPU value aggregate (§IV-E) ->
+    (counts, vals) in one launch of the value-lane kernel.
+
+    Membership as in ``xlevel_count``; each kept slot carries
+    ``a_vals · Π_{INTER r} matched_val_r · scale[row]`` and ``vals[i]``
+    reduces row i's kept slots with ``op`` ('sum' / 'max' / 'min'; the op's
+    identity for an empty row). ``b_vals`` is the (k, B, cap_b) value stack
+    aligned with ``bs`` (0.0 where keys are SENTINEL). ``pol = ()`` is the
+    plain torch form on every device, as in ``xlevel_count``."""
+    if not pol:
+        return batch_level_agg(a, bs, pol, a_vals, b_vals, scale, op, bounds,
+                               lbounds, excludes)
+    _, counts, vals = intersect_multi_agg(a, bs, pol, a_vals, b_vals, scale, op,
+                                          bounds, lbounds, excludes)
+    return counts, vals
+
+
+def xvinter(a_keys, a_vals, b_keys, b_vals, op: str = "mac"):
+    """Batched S_VINTER (SVPU, §IV-E): per row, the op-sum over value pairs
+    of intersected keys ('mac' Σ va·vb, a sparse dot; 'max' / 'min' Σ of the
+    pair's max / min) — the entry ``sparse.spmm`` and ``sparse.ttv`` go
+    through."""
+    return vinter(a_keys, a_vals, b_keys, b_vals, op)

@@ -29,8 +29,15 @@ A level runs in one of three shapes, as in the reference engine:
            ``fused_level=False`` one mark launch per reference ANDed into
            the keep mask; a window-only level (k = 0) launches nothing
 
-Emit levels (embeddings) and aggregate levels (the value plane) raise
-``NotImplementedError`` naming the slice that brings them.
+An aggregate leaf (a weighted query, ``plan.compile_pattern(aggregate=)``)
+replaces the count leaf: one launch of the value-lane kernel
+(``ops.xlevel_agg``) per call whatever the level's shape (none for a
+window-only leaf), leaving one f32 (value, live) pair per chunk on the
+device; the pairs are read once per run and reduced on the host in
+float64, in chunk order.
+
+Emit levels (embeddings) raise ``NotImplementedError`` naming the slice
+that brings them.
 """
 from __future__ import annotations
 
@@ -41,11 +48,12 @@ import torch
 
 from repro_torch.core.batch import batch_compact_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
-from repro_torch.graph.csr import CSRGraph, padded_rows
-from repro_torch.kernels.ops import (xinter_compact, xinter_count,
+from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
+from repro_torch.kernels.ops import (xinter_compact, xinter_count, xlevel_agg,
                                      xlevel_compact, xlevel_count, xmark,
                                      xsub_compact, xsub_count)
 from repro_torch.obs import LegacyStatsView, Telemetry
+from repro_torch.values import edge_value_lookup, prefix_scale
 
 from .plan import LevelOp, WavePlan
 
@@ -151,7 +159,9 @@ class WaveRunner:
     * **double-buffered feed**: level-1 edge chunks go to the device from
       pinned memory one chunk ahead of compute;
     * **per-chunk device partials**: count levels reduce to one int64 per
-      chunk on the device, summed and read once at the end of ``run``.
+      chunk on the device, summed and read once at the end of ``run``;
+      aggregate leaves to one f32 (value, live) pair per chunk, read once
+      and reduced on the host.
     """
 
     # ``stats`` keys, in the reference engine's order; each is a registry
@@ -179,6 +189,9 @@ class WaveRunner:
         self._ct = {k: self.stats.expose_counter(k, self.metrics)
                     for k in self._STAT_KEYS}
         self._ct_feed_chunks = self.metrics.counter("feed_chunks")
+        # aggregate-leaf calls: each rides the leaf's one membership launch,
+        # so this counts value lanes, not extra launches
+        self._ct_value_lanes = self.metrics.counter("value_lane_dispatches")
 
     # ------------------------------------------------------------ slice
     @staticmethod
@@ -197,20 +210,18 @@ class WaveRunner:
         """Raise for a level this slice of the port cannot run yet."""
         for op in plan.ops:
             if op.kind == "emit":
-                why = "emit levels (embeddings) arrive with the session slice"
-            elif op.agg is not None:
-                why = "aggregate levels arrive with the value-plane slice"
-            else:
-                continue
-            raise NotImplementedError(
-                f"{plan.pattern.name}: level {op.level} ({op.kind}, inter="
-                f"{op.inter}, sub={op.sub}, exclude={op.exclude}) — {why} "
-                "(ROADMAP.md, modules still to port)")
+                raise NotImplementedError(
+                    f"{plan.pattern.name}: level {op.level} ({op.kind}, inter="
+                    f"{op.inter}, sub={op.sub}, exclude={op.exclude}) — emit "
+                    "levels (embeddings) arrive with the session slice "
+                    "(ROADMAP.md, modules still to port)")
 
     def _level_dispatches(self, op: LevelOp) -> int:
         """Membership-kernel launches one level call issues: 1 for a fused
         or a general level, k per general level with ``fused_level=False``
-        (one mark per reference), 0 for a window-only level."""
+        (one mark per reference), 0 for a window-only level. An aggregate
+        leaf counts as its count twin does, as in the reference engine,
+        though it always issues one value-lane launch (none when k = 0)."""
         if self._fused_shape(op) is not None:
             return 1
         k = len(op.inter) + len(op.sub)
@@ -326,6 +337,19 @@ class WaveRunner:
         return torch.stack(rows)
 
     @staticmethod
+    def _stack_val_refs(g, get, caps: dict, refs: tuple[int, ...]) -> torch.Tensor:
+        """Value twin of ``_stack_refs``: the (k, B, cap) f32 stack aligned
+        with the key stack, 0.0 where keys are SENTINEL padding."""
+        capmax = max(caps[j] for j in refs)
+        rows = []
+        for j in refs:
+            v = padded_value_rows(g, get[j], caps[j])
+            if caps[j] < capmax:
+                v = torch.nn.functional.pad(v, (0, capmax - caps[j]))
+            rows.append(v)
+        return torch.stack(rows)
+
+    @staticmethod
     def _excl_vals(op: LevelOp, get):
         """Per-row injectivity keys for the k-reference kernel's excludes
         operand, (B, E) int32 (None when the level declares none)."""
@@ -370,6 +394,60 @@ class WaveRunner:
                 col, c = op.tail
                 counts = counts * (g.degrees[get[col].long()].long() - c)
             return counts.sum()
+        return fn
+
+    def _plan_agg_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int):
+        """Terminal SVPU aggregate level (``op.agg``) -> one f32 (value,
+        live) pair per chunk, on device. The cache key's prefix carries
+        ``fused_level``, as the reference's key does."""
+        return self._executable(("pagg", op, caps_sig, cap_base),
+                                lambda: self._agg_body(op, caps_sig))
+
+    def _agg_body(self, op: LevelOp, caps_sig: tuple):
+        """The aggregate leaf. An embedding's value is the product over all
+        pattern edges of the edge weight, from three sources: prefix-prefix
+        edges fold into the per-row ``scale`` (``prefix_scale``); the
+        leaf's own INTER references give theirs in the kernel's value lane
+        (``b_vals``); candidate edges covered at an ancestor level (carry
+        reuse, the fresh base's own gather, ``agg_cand_cols``) land in
+        ``a_vals`` (``padded_value_rows``, ``edge_value_lookup``). The pair
+        is [op-reduced value, live embedding count]; ``live`` only gates
+        the op identity out at ``_finalize``."""
+        in_cols = self._in_cols(op)
+        caps = dict(caps_sig)
+        refs = op.inter + op.sub
+        pol = (1,) * len(op.inter) + (0,) * len(op.sub)
+
+        def fn(g, vals, carry, n):
+            get = dict(zip(in_cols, vals))
+            if op.use_carry:
+                base = carry
+                a_vals = torch.ones(base.shape, dtype=torch.float32,
+                                    device=base.device)
+            else:
+                base = padded_rows(g, get[op.base], caps[op.base])[0]
+                a_vals = padded_value_rows(g, get[op.base], caps[op.base])
+            for c in op.agg_cand_cols:
+                a_vals = a_vals * edge_value_lookup(g, get[c], base)
+            scale = prefix_scale(g, get, op.agg_scale_edges) if op.agg_scale_edges \
+                else torch.ones((base.shape[0],), dtype=torch.float32,
+                                device=base.device)
+            ub = self._ub_vec(op, get, n, base.shape[0])
+            lb = self._max_lb(op, get) if op.lb else None
+            bs = self._stack_refs(g, get, caps, refs) if refs else None
+            bv = self._stack_val_refs(g, get, caps, refs) if refs else None
+            counts, rvals = xlevel_agg(base, bs, pol, a_vals, bv, scale, op.agg,
+                                       ub, lbounds=lb,
+                                       excludes=self._excl_vals(op, get))
+            # a dead row carries the op identity, so the plain reduce is right
+            if op.agg == "sum":
+                value = rvals.sum(dtype=torch.float32)
+            elif op.agg == "max":
+                value = rvals.max()
+            else:
+                value = rvals.min()
+            live = counts.sum(dtype=torch.int32).to(torch.float32)
+            return torch.stack([value, live])
         return fn
 
     def _survivor_core(self, op: LevelOp, caps: dict, out_cap: int,
@@ -461,8 +539,11 @@ class WaveRunner:
         return fn
 
     # ------------------------------------------------------- the interpreter
-    def _finalize(self, plan: WavePlan, parts: list) -> int:
-        """Sum one plan's per-chunk device partials: one host read."""
+    def _finalize(self, plan: WavePlan, parts: list):
+        """Reduce one plan's per-chunk device partials: one host read."""
+        agg = plan.ops[-1].agg
+        if agg is not None:
+            return self._finalize_agg(agg, parts)
         if not parts:
             return 0
         total = int(torch.stack(parts).sum())
@@ -472,9 +553,30 @@ class WaveRunner:
                                f"multiple of div {plan.div}")
         return total // plan.div
 
-    def run(self, plan: WavePlan) -> int:
-        """Execute a compiled counting ``WavePlan``; returns the count
-        (divided by ``plan.div``)."""
+    def _finalize_agg(self, agg: str, parts: list) -> float:
+        """Reduce the f32 (value, live) pairs in float64 on the host, in
+        chunk order, as the reference engine does; 0.0 when no embedding
+        is live (a weighted query over zero embeddings aggregates to 0.0)."""
+        if not parts:
+            return 0.0
+        pairs = torch.stack(parts).cpu().numpy().astype(np.float64)
+        self._ct["host_syncs"].inc()
+        value, live = None, 0.0
+        for x, n in pairs.tolist():
+            live += n
+            if value is None:
+                value = x
+            elif agg == "sum":
+                value += x
+            elif agg == "max":
+                value = max(value, x)
+            else:
+                value = min(value, x)
+        return value if live > 0 else 0.0
+
+    def run(self, plan: WavePlan):
+        """Execute a compiled counting or aggregate ``WavePlan``; returns the
+        count (divided by ``plan.div``) or the aggregate (a float)."""
         self._require_slice(plan)
         op0 = plan.ops[0]
         outs: list = []
@@ -495,7 +597,11 @@ class WaveRunner:
         vals = tuple(cols[c] for c in self._in_cols(op))
         if op.kind == "count":
             self._bump(op)
-            fn = self._plan_count_fn(op, caps_sig, cap_base)
+            if op.agg is not None:
+                self._ct_value_lanes.inc()
+                fn = self._plan_agg_fn(op, caps_sig, cap_base)
+            else:
+                fn = self._plan_count_fn(op, caps_sig, cap_base)
             return [fn(self.g, vals, carry, n)]
         b = int(carry.shape[0]) if op.use_carry else int(cols[op.base].shape[0])
         out_cap = min([cap_base] + [caps[j] for j in op.inter])

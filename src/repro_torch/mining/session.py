@@ -3,6 +3,7 @@
     m = Miner(graph)                   # graph moves to the card once
     m.count("triangle")                # -> int
     m.count("5-clique")
+    m.aggregate("triangle", "sum")     # -> float, on a weighted graph
 
 The counterpart of ``repro.mining.session``. Every query runs through two
 stages, each memoised for the session's lifetime:
@@ -10,13 +11,21 @@ stages, each memoised for the session's lifetime:
 **compile** — a query (a name from ``plan._NAMED_QUERIES``, a ``Motif``
 shape, or an explicit ``Pattern``) lowers to a ``WavePlan`` via
 ``plan.compile_pattern``; a ``Motif`` first gets its matching order from
-``forest.schedule_patterns``. Plans are cached per query.
+``forest.schedule_patterns``. Plans are cached per (query, aggregate op).
 
 **execute** — ``engine.WaveRunner`` interprets the plan. The graph's CSR
 tensors move to the session's device once, at construction, and every
 built level executable lives in the session's ``ExecutableCache`` (keys:
 ``(chunk, fused_level, kind, LevelOp, capacity signature, ...)``), so a
 repeated query rebuilds nothing (``stats['rebuilds']`` counts the misses).
+
+**Value streams** — on a weighted graph (``graph.with_edge_values`` or
+``build_csr(..., edge_values=)``) ``aggregate(query, op)`` reduces the
+embeddings' values with ``op`` ('sum' / 'max' / 'min'): an embedding's
+value is the product of its pattern edges' weights. A weighted plan runs
+its unweighted twin's levels and feed chunks (a count plan may fold its
+last level into a degree factor, which a weighted plan cannot); its leaf
+carries the value lane (``engine.WaveRunner._agg_body``).
 
 A session runs on ``cuda`` unless its config says ``device="cpu"``; with
 no card it raises rather than carrying on on the CPU. A ``Miner`` is
@@ -108,23 +117,40 @@ class Miner:
         self._sct = {k: self._stats.expose_counter(k, self.metrics)
                      for k in self._SESSION_KEYS}
 
-    def compile(self, query) -> WavePlan:
-        """Lower one query to a ``WavePlan`` (cached)."""
+    def compile(self, query, aggregate: str | None = None) -> WavePlan:
+        """Lower one query to a ``WavePlan`` (cached); ``aggregate`` compiles
+        the weighted (SVPU value) program."""
         resolved = resolve_query(query)
-        plan = self._plans.get(resolved)
+        key = (resolved, False, aggregate)     # (query, emit, aggregate)
+        plan = self._plans.get(key)
         if plan is not None:
             self._sct["plan_hits"].inc()
             return plan
         self._sct["plan_misses"].inc()
         pat = schedule_patterns([resolved])[0] if isinstance(resolved, Motif) \
             else resolved
-        plan = self._plans[resolved] = compile_pattern(pat)
+        plan = self._plans[key] = compile_pattern(pat, aggregate=aggregate)
         return plan
 
     def count(self, query) -> int:
         """Count embeddings of one pattern query."""
         self._sct["queries"].inc()
         return self._runner.run(self.compile(query))
+
+    def _require_values(self) -> None:
+        if self.graph.edge_values is None:
+            raise ValueError(
+                "aggregate queries need a weighted graph — build with "
+                "edge_values (graph.build_csr(..., edge_values=...) or "
+                "graph.with_edge_values)")
+
+    def aggregate(self, query, op: str = "sum") -> float:
+        """Reduce the embedding values of one query with ``op`` ('sum' /
+        'max' / 'min'); an embedding's value is the product of its
+        pattern-edge weights (0.0 when the query has no embedding)."""
+        self._require_values()
+        self._sct["queries"].inc()
+        return self._runner.run(self.compile(query, aggregate=op))
 
     @property
     def runner(self) -> WaveRunner:

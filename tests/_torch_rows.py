@@ -63,3 +63,50 @@ def make_level_case(seed, batch, cap_a, k, cap_b):
             if rng.random() < 0.5:
                 excl[i, 1] = rng.choice(live)
     return a, bs, bounds, lbounds, excl
+
+
+def make_values(rng, shape, dyadic=True):
+    """f32 values beside keys: dyadic ({1/4, 1/2, 3/4, 1}, so products and
+    small sums are exact in f32 in any order), else non-dyadic in [0.5, 2)
+    (positive, so a sum has no cancellation and a relative tolerance holds)."""
+    if dyadic:
+        return (rng.integers(1, 5, size=shape) * 0.25).astype(np.float32)
+    return rng.uniform(0.5, 2.0, size=shape).astype(np.float32)
+
+
+def make_agg_case(seed, batch, cap_a, k, cap_b, dyadic=True):
+    """``make_level_case`` plus the value lane's a_vals (B, cap_a), b_vals
+    (k, B, cap_b) and scale (B,), values 0.0 on SENTINEL keys."""
+    a, bs, bounds, lbounds, excl = make_level_case(seed, batch, cap_a, k, cap_b)
+    rng = np.random.default_rng(seed + 1)
+    a_vals = np.where(a != SENTINEL, make_values(rng, a.shape, dyadic), 0).astype(np.float32)
+    b_vals = np.where(bs != SENTINEL, make_values(rng, bs.shape, dyadic), 0).astype(np.float32)
+    scale = make_values(rng, (batch,), dyadic)
+    return a, bs, bounds, lbounds, excl, a_vals, b_vals, scale
+
+
+def make_vinter_case(seed, batch, cap_a, cap_b, dyadic=True):
+    """S_VINTER inputs: key rows drawn from a range where they overlap, and
+    values beside them (0.0 on SENTINEL keys)."""
+    rng = np.random.default_rng(seed)
+    hi = cap_a + cap_b
+    a = make_rows(rng, batch, cap_a, hi, empty_prob=0.1)
+    b = make_rows(rng, batch, cap_b, hi, empty_prob=0.1)
+    b[0] = a[0, :cap_b] if cap_a >= cap_b else b[0]
+    va = np.where(a != SENTINEL, make_values(rng, a.shape, dyadic), 0).astype(np.float32)
+    vb = np.where(b != SENTINEL, make_values(rng, b.shape, dyadic), 0).astype(np.float32)
+    return a, va, b, vb
+
+
+# the weighted queries of the port, each with its number of pattern edges:
+# an embedding's value is a product of that many weights in {1/4, .., 1}
+AGG_QUERIES = {"triangle": 3, "4-clique": 6, "5-clique": 10, "three-chain-induced": 2,
+               "diamond": 5, "paw": 4, "4-cycle": 4, "tailed-triangle": 4, "4-path": 3}
+AGG_OPS = ("sum", "max", "min")
+
+
+def sum_is_exact(total: float, n_edges: int) -> bool:
+    """Whether every summation order gives ``total`` exactly: values are
+    positive multiples of 4^-n_edges, so every partial is at most the total
+    and f32 holds each exactly while the total is below 2^24 units."""
+    return abs(total) < 2.0 ** (24 - 2 * n_edges)

@@ -9,11 +9,14 @@ import pytest
 import torch
 
 from repro_torch import Miner
-from repro_torch.graph import get_dataset
+from repro_torch.graph import edge_list, edge_weights, get_dataset, with_edge_values
 from repro_torch.kernels import intersect as K
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import svinter as SV
+from repro_torch.sparse import from_dense, random_csf, spmsp_matmul, ttv
 
-from _torch_rows import T, make_bounds, make_case, make_level_case, make_rows
+from _torch_rows import (AGG_OPS, AGG_QUERIES, T, make_agg_case, make_bounds, make_case,
+                         make_level_case, make_rows, make_vinter_case, sum_is_exact)
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +160,105 @@ def test_miner_on_card_counts_sub_and_general_levels(cuda, fused_level):
         _, (f_mark, f_multi) = launches(Miner(g), "4-cycle")
         assert f_multi > 0
         assert launched["4-cycle"] == [f_mark + 2 * f_multi, 0]
+
+
+@pytest.mark.parametrize("op", AGG_OPS)
+@pytest.mark.parametrize("pol", POLS)
+@pytest.mark.parametrize("B,cap_a,cap_b", SHAPES)
+def test_multi_agg_kernel_equals_plain_version(cuda, B, cap_a, cap_b, pol, op):
+    """Dyadic values: marks, counts and vals bit for bit (every product and
+    row sum is exact in f32), with and without bounds and excludes; stacks
+    past 4096 keys take the global-memory path."""
+    case = make_agg_case(B + cap_a + len(pol), B, cap_a, len(pol), cap_b)
+    a, bs, bounds, lbounds, excl, av, bv, sc = (T(x).to(cuda) for x in case)
+    for bd, lbd, ex in ((bounds, lbounds, excl), (bounds, None, None),
+                        (None, lbounds, excl), (None, None, None)):
+        n = K.intersect_multi_agg.launches
+        got = K.intersect_multi_agg(a, bs, pol, av, bv, sc, op, bd, lbd, ex)
+        torch.cuda.synchronize()
+        assert K.intersect_multi_agg.launches == n + 1
+        want = K.intersect_multi_agg_ref(a, bs, pol, av, bv, sc, op, bd, lbd, ex)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("op", AGG_OPS)
+@pytest.mark.parametrize("B,cap_a,cap_b", SHAPES)
+def test_multi_agg_kernel_non_dyadic_values(cuda, B, cap_a, cap_b, op):
+    """Values in [0.5, 2): marks, counts, max and min bit for bit (one
+    multiplication order in both); sums within rtol 1e-6, since f32 sums
+    of up to cap_a positive terms in two orders may round differently."""
+    pol = (1, 1, 0)
+    case = make_agg_case(B + cap_b, B, cap_a, 3, cap_b, dyadic=False)
+    a, bs, bounds, lbounds, excl, av, bv, sc = (T(x).to(cuda) for x in case)
+    got = K.intersect_multi_agg(a, bs, pol, av, bv, sc, op, bounds, lbounds, excl)
+    want = K.intersect_multi_agg_ref(a, bs, pol, av, bv, sc, op, bounds, lbounds, excl)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if op == "sum":
+        torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got[2], want[2])
+
+
+VINTER_SHAPES = [(4096, 128, 128), (512, 128, 256), (64, 2048, 2048), (7, 384, 640)]
+
+
+@pytest.mark.parametrize("op", ("mac", "max", "min"))
+@pytest.mark.parametrize("B,cap_a,cap_b", VINTER_SHAPES)
+def test_vinter_kernel_equals_plain_version(cuda, B, cap_a, cap_b, op):
+    """Dyadic values bit for bit; values in [0.5, 2) within rtol 1e-6 (f32
+    row sums in two orders); B as one row expanded over the batch (row
+    stride 0, ttv's vector) too."""
+    a, va, b, vb = (T(x).to(cuda) for x in make_vinter_case(B + cap_a, B, cap_a, cap_b))
+    n = SV.vinter.launches
+    got = SV.vinter(a, va, b, vb, op)
+    torch.cuda.synchronize()
+    assert SV.vinter.launches == n + 1
+    assert torch.equal(got, SV.vinter_ref(a, va, b, vb, op))
+    b1, vb1 = b[:1].expand(B, cap_b), vb[:1].expand(B, cap_b)
+    assert torch.equal(SV.vinter(a, va, b1, vb1, op), SV.vinter_ref(a, va, b1, vb1, op))
+    a, va, b, vb = (T(x).to(cuda) for x in make_vinter_case(B, B, cap_a, cap_b, dyadic=False))
+    torch.testing.assert_close(SV.vinter(a, va, b, vb, op), SV.vinter_ref(a, va, b, vb, op),
+                               rtol=1e-6, atol=0)
+
+
+def test_miner_aggregate_on_card_equals_cpu(cuda):
+    """The nine weighted queries on email-eu-core 0.25: max and min, and
+    sums that f32 holds exactly, bit for bit; other sums within rtol 1e-6
+    (chunk partials summed in another order); one value-lane launch per
+    aggregate-leaf call with references, none for tailed-triangle's."""
+    g = get_dataset("email-eu-core", 0.25)
+    g = with_edge_values(g, edge_weights(edge_list(g), seed=0))
+    dev, cpu = Miner(g), Miner(g, device="cpu")
+    lanes = dev.metrics.counter("value_lane_dispatches")
+    for q, n_edges in AGG_QUERIES.items():
+        for op in AGG_OPS:
+            n, v = K.intersect_multi_agg.launches, lanes.value
+            got, want = dev.aggregate(q, op), cpu.aggregate(q, op)
+            if op != "sum" or sum_is_exact(want, n_edges):
+                assert got == want, (q, op)
+            else:
+                assert got == pytest.approx(want, rel=1e-6), (q, op)
+            assert dev.stats["runner"] == cpu.stats["runner"], (q, op)
+            calls = lanes.value - v
+            assert calls > 0
+            assert K.intersect_multi_agg.launches - n == (0 if q == "tailed-triangle"
+                                                          else calls), (q, op)
+
+
+def test_sparse_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(5)
+    a_d = np.where(rng.random((90, 70)) < 0.1, rng.normal(size=(90, 70)), 0).astype(np.float32)
+    b_d = np.where(rng.random((70, 80)) < 0.1, rng.normal(size=(70, 80)), 0).astype(np.float32)
+    a, b = from_dense(a_d), from_dense(b_d, "csc")
+    n = SV.vinter.launches
+    c = spmsp_matmul(a, b, row_block=16, col_block=16)
+    assert SV.vinter.launches > n
+    np.testing.assert_allclose(c, spmsp_matmul(a, b, 16, 16, device="cpu"), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(c, a_d.astype(np.float64) @ b_d, rtol=1e-5, atol=1e-6)
+    t = random_csf((20, 9, 40), 700, seed=2)
+    keys = np.arange(40, dtype=np.int32)
+    vals = rng.normal(size=40).astype(np.float32)
+    got, want = ttv(t, keys, vals, fiber_block=64)[2], ttv(t, keys, vals, 64, device="cpu")[2]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

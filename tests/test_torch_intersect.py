@@ -13,13 +13,17 @@ import torch
 from repro.core import batch as jbatch
 from repro.kernels import ops as jops
 from repro.kernels.intersect import (intersect_count_pallas, intersect_expand_pallas,
-                                     intersect_mark_pallas, intersect_multi_pallas)
+                                     intersect_mark_pallas, intersect_multi_agg_pallas,
+                                     intersect_multi_pallas)
+from repro.kernels.svinter import vinter_pallas
 from repro_torch.core import batch as tbatch
 from repro_torch.core.stream import SENTINEL
 from repro_torch.kernels import intersect as K
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import svinter as SV
 
-from _torch_rows import T, make_case, make_level_case, make_rows
+from _torch_rows import (AGG_OPS, T, make_agg_case, make_case, make_level_case, make_rows,
+                         make_vinter_case)
 
 POLS = [(1,), (0,), (1, 0), (0, 0), (1, 1, 0)]
 
@@ -296,3 +300,167 @@ def test_xlevel_count_and_compact_equal_jax_xla(pol, with_excludes):
                                backend="xla", lbounds=jlb, excludes=jex)
     _assert_six_equal(got, want)
     assert int(got[4]) > 0
+
+
+# k = 1, 2, 3 references, INTER and SUB polarity
+AGG_POLS = [(1,), (0,), (1, 0), (1, 1), (1, 1, 0)]
+
+
+def _agg_case(pol, seed, dyadic=True, bounded=True, with_excludes=True):
+    a, bs, bounds, lbounds, excl, av, bv, sc = make_agg_case(seed, 8, 256, len(pol), 128,
+                                                             dyadic)
+    if not bounded:
+        bounds = lbounds = None
+    return a, bs, bounds, lbounds, excl if with_excludes else None, av, bv, sc
+
+
+def _agg_all(pol, op, case):
+    """(plain version, Pallas interpret, XLA twin, ops.xlevel_agg) on one case."""
+    a, bs, bounds, lbounds, excl, av, bv, sc = case
+    ja, jbs, jbd, jlb, jex, jav, jbv, jsc = _j(*case)
+    got = K.intersect_multi_agg_ref(T(a), T(bs), pol, T(av), T(bv), T(sc), op, T(bounds),
+                                    T(lbounds), T(excl))
+    pallas = intersect_multi_agg_pallas(ja, jbs, pol, jav, jbv, jsc, op=op, bounds=jbd,
+                                        interpret=True, lbounds=jlb, excludes=jex)
+    xla = jbatch.batch_level_agg(ja, jbs, pol, jav, jbv, jsc, op=op, bounds=jbd,
+                                 lbounds=jlb, excludes=jex)
+    before = K.intersect_multi_agg.launches
+    ops = tops.xlevel_agg(T(a), T(bs), pol, T(av), T(bv), T(sc), op, T(bounds),
+                          lbounds=T(lbounds), excludes=T(excl))
+    assert K.intersect_multi_agg.launches == before
+    return got, [np.asarray(x) for x in pallas], [np.asarray(x) for x in xla], ops
+
+
+@pytest.mark.parametrize("op", AGG_OPS)
+@pytest.mark.parametrize("pol", AGG_POLS)
+def test_multi_agg_plain_version_equals_pallas_interpret_and_xla(pol, op):
+    """Dyadic values: marks, counts and vals bit for bit against the Pallas
+    kernel and the XLA twin, with a bound-0 row (row 1: the op identity),
+    lower bounds and E = 2 excludes."""
+    case = _agg_case(pol, 40 + len(pol) * 7 + sum(pol))
+    (m, c, v), (pm, pc, pv), (xc, xv), (oc, ov) = _agg_all(pol, op, case)
+    assert m.dtype == c.dtype == torch.int32 and v.dtype == torch.float32
+    np.testing.assert_array_equal(m.numpy(), pm)
+    for got in (c, oc):
+        np.testing.assert_array_equal(got.numpy(), pc)
+        np.testing.assert_array_equal(got.numpy(), xc)
+    for got in (v, ov):
+        np.testing.assert_array_equal(got.numpy(), pv)
+        np.testing.assert_array_equal(got.numpy(), xv)
+    assert c[1].item() == 0 and v[1].item() == {"sum": 0.0, "max": float(np.float32(-3.4e38)),
+                                                "min": float(np.float32(3.4e38))}[op]
+    assert c.sum().item() > 0
+
+
+@pytest.mark.parametrize("op", AGG_OPS)
+def test_multi_agg_unbounded_without_excludes_equals_pallas_interpret(op):
+    pol = (1, 1, 0)
+    case = _agg_case(pol, 9, bounded=False, with_excludes=False)
+    (m, c, v), (pm, pc, pv), (xc, xv), _ = _agg_all(pol, op, case)
+    np.testing.assert_array_equal(m.numpy(), pm)
+    np.testing.assert_array_equal(c.numpy(), pc)
+    np.testing.assert_array_equal(v.numpy(), pv)
+    np.testing.assert_array_equal(v.numpy(), xv)
+
+
+@pytest.mark.parametrize("op", AGG_OPS)
+def test_multi_agg_non_dyadic_values(op):
+    """Values in [0.5, 2): marks and counts bit for bit; against the XLA twin
+    (same multiplication order) max and min bit for bit and sums within
+    rtol 1e-6 (f32 row sums in another order); against the Pallas kernel,
+    which multiplies the matched values before a_vals, every op within
+    rtol 1e-6."""
+    pol = (1, 1, 0)
+    case = _agg_case(pol, 21, dyadic=False)
+    (m, c, v), (pm, pc, pv), (xc, xv), _ = _agg_all(pol, op, case)
+    np.testing.assert_array_equal(m.numpy(), pm)
+    np.testing.assert_array_equal(c.numpy(), xc)
+    np.testing.assert_allclose(v.numpy(), pv, rtol=1e-6)
+    if op == "sum":
+        np.testing.assert_allclose(v.numpy(), xv, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(v.numpy(), xv)
+
+
+def test_xlevel_agg_window_only_level_equals_jax_xla():
+    """pol = (): no reference stack; the plain form on every device."""
+    a, _, bounds, lbounds, excl, av, _, sc = make_agg_case(13, 16, 256, 1, 128)
+    ja, jbd, jlb, jex, jav, jsc = _j(a, bounds, lbounds, excl, av, sc)
+    for op in AGG_OPS:
+        c, v = tops.xlevel_agg(T(a), None, (), T(av), None, T(sc), op, T(bounds),
+                               lbounds=T(lbounds), excludes=T(excl))
+        wc, wv = jops.xlevel_agg(ja, None, (), jav, None, jsc, op=op, bounds=jbd,
+                                 backend="xla", lbounds=jlb, excludes=jex)
+        np.testing.assert_array_equal(c.numpy(), np.asarray(wc))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+
+
+def _bad_agg_inputs():
+    a = torch.zeros((4, 128), dtype=torch.int32)
+    bs = torch.zeros((2, 4, 128), dtype=torch.int32)
+    av, bv, sc = torch.zeros((4, 128)), torch.zeros((2, 4, 128)), torch.ones(4)
+    return {
+        "op": (a, bs, av, bv, sc, "mean"),
+        "a_vals dtype": (a, bs, av.double(), bv, sc, "sum"),
+        "a_vals shape": (a, bs, av[:, :64].contiguous(), bv, sc, "sum"),
+        "b_vals shape": (a, bs, av, bv[:1].contiguous(), sc, "sum"),
+        "b_vals non-contiguous": (a, bs, av, torch.zeros((2, 4, 256))[..., ::2], sc, "sum"),
+        "scale shape": (a, bs, av, bv, sc[:3], "sum"),
+        "scale dtype": (a, bs, av, bv, sc.half(), "sum"),
+        "bs dtype": (a, bs.long(), av, bv, sc, "sum"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_agg_inputs()))
+def test_multi_agg_wrapper_raises_on_what_the_kernel_does_not_take(case):
+    a, bs, av, bv, sc, op = _bad_agg_inputs()[case]
+    with pytest.raises(ValueError):
+        K.intersect_multi_agg(a, bs, (1, 0), av, bv, sc, op)
+
+
+@pytest.mark.parametrize("op", ("mac", "max", "min"))
+@pytest.mark.parametrize("cap_a,cap_b", [(128, 128), (256, 384), (640, 128)])
+def test_vinter_plain_version_equals_pallas_interpret_and_xla(cap_a, cap_b, op):
+    """Dyadic values bit for bit; values in [0.5, 2) within rtol 1e-6 (f32
+    row sums in another order); B as one row expanded over the batch."""
+    a, va, b, vb = make_vinter_case(cap_a + cap_b, 8, cap_a, cap_b)
+    ja, jva, jb, jvb = _j(a, va, b, vb)
+    before = SV.vinter.launches
+    got = SV.vinter(T(a), T(va), T(b), T(vb), op)
+    assert SV.vinter.launches == before and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        vinter_pallas(ja, jva, jb, jvb, op=op, interpret=True)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jbatch.batch_vinter(ja, jva, jb, jvb, op=op)))
+    np.testing.assert_array_equal(tops.xvinter(T(a), T(va), T(b), T(vb), op).numpy(),
+                                  got.numpy())
+    assert got[0].item() > 0
+    b1, vb1 = T(b)[:1].expand(8, cap_b), T(vb)[:1].expand(8, cap_b)
+    np.testing.assert_array_equal(SV.vinter(T(a), T(va), b1, vb1, op).numpy(), np.asarray(
+        jbatch.batch_vinter(ja, jva, jnp.asarray(b1.numpy()), jnp.asarray(vb1.numpy()),
+                            op=op)))
+    a, va, b, vb = make_vinter_case(cap_a, 8, cap_a, cap_b, dyadic=False)
+    np.testing.assert_allclose(SV.vinter(T(a), T(va), T(b), T(vb), op).numpy(), np.asarray(
+        jbatch.batch_vinter(*_j(a, va, b, vb), op=op)), rtol=1e-6)
+
+
+def _bad_vinter_inputs():
+    k, v = torch.zeros((4, 128), dtype=torch.int32), torch.zeros((4, 128))
+    wide = torch.zeros((4, 256), dtype=torch.int32)
+    return {
+        "op": (k, v, k, v, "sum"),
+        "key dtype": (k.long(), v, k, v, "mac"),
+        "value dtype": (k, v.double(), k, v, "mac"),
+        "cap": (torch.zeros((4, 100), dtype=torch.int32), torch.zeros((4, 100)), k, v, "mac"),
+        "rows": (k, v, k[:3], v[:3], "mac"),
+        "values shape": (k, v, wide, v, "mac"),
+        "a non-contiguous": (wide[:, ::2], v, k, v, "mac"),
+        "b strides differ": (k, v, k[:1].expand(4, 128), v, "mac"),
+        "device": (k.to("meta"), v.to("meta"), k.to("meta"), v.to("meta"), "mac"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_vinter_inputs()))
+def test_vinter_wrapper_raises_on_what_the_kernel_does_not_take(case):
+    with pytest.raises(ValueError):
+        SV.vinter(*_bad_vinter_inputs()[case])
