@@ -13,9 +13,11 @@ non-zero:
   3. parity   each kernel against its plain torch version on the card, on
               seeded random rows at the main path's shapes (the k-reference
               kernels over INTER/SUB polarities, excludes and bound-0 rows;
-              the value-lane and S_VINTER kernels over every op), bit for
-              bit on dyadic values and within rtol 1e-6 on others, with
-              both versions timed by CUDA events
+              the value-lane and S_VINTER kernels over every op; compact-rows
+              over keep densities, cut rows, dead rows and SENTINEL slots;
+              the bitmap count over random words), bit for bit on dyadic
+              values and within rtol 1e-6 on others, with both versions
+              timed by CUDA events; ops.xinter against the CPU's batch_inter
   4. main     repro_torch.Miner counts triangles, cliques, three-chains and
               the 4-motifs on mico, youtube, wiki-vote and email-eu-core at
               the sizes below, and 4-cycle once more with fused_level=False;
@@ -28,13 +30,29 @@ non-zero:
               unweighted twin and one value-lane launch per leaf call
   6. sparse   repro_torch.sparse.spmsp_matmul and ttv at the paper's Table
               VI sizes, against float64 numpy products
-  7. profile  mico's queries once more under torch.profiler: device busy
+  7. forest   Miner.count_many (the plan forest): TM on mico, 4M on
+              wiki-vote, each equal to the JAX package's counts and to
+              per-query counts in the same session; the forest's static
+              and dynamic sharing on email-eu-core 1.0 (feed passes, level-2
+              executions, fused against independent walls); the session mix
+              of benchmarks/bench_mining.py twice on email-eu-core 0.25 (the
+              baseline.json counts, nothing rebuilt on the second pass);
+              aggregate_many against per-query aggregates
+  8. host     the host-compaction path (device_compact=False): the JAX
+              package's counters on email-eu-core 0.25 4M, wiki-vote 4C and
+              4M equal to the device path's counts, mico 4C in both modes
+              timed; one compact-rows launch per host compaction
+  9. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
+              equal to the sorted-row count of the same rows; the
+              merge-against-bitmap crossover sweep of
+              benchmarks/bench_kernels.py, timed on the card
+ 10. profile  mico's queries once more under torch.profiler: device busy
               time against the untraced wall time, and the top device kernels
-  8. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 11. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
-(4, 5 or 6) and must be > 0 just after it; the kernels line reports those
-counts.
+(4, 5, 6, 8 or 9) and must be > 0 just after it; the kernels line reports
+those counts.
 
 Imports nothing of JAX or of the JAX package. Needs one card; exits non-zero,
 printing no result, when torch sees no CUDA device or when the repository's
@@ -141,6 +159,32 @@ TIMED_SHAPE = (2048, 2048, 2048)
 MULTI_SHAPES = ((2048, 128, 2, 128), (2048, 2048, 2, 2048), (128, 128, 3, 32768))
 MULTI_POLS = ((1,), (0,), (1, 0), (0, 0), (1, 1, 0))
 MULTI_TIMED = (2048, 2048, 2, 2048)
+# compact-rows: (B, cap, out_cap) x keep densities; (4096, 256, 64) cuts rows
+COMPACT_SHAPES = (((2048, 2048, 2048), (0.05, 0.3, 1.0)), ((2048, 128, 128), (0.3,)),
+                  ((4096, 256, 64), (0.3, 1.0)))
+COMPACT_TIMED = (2048, 2048, 2048, 0.3)
+# bitmap words a row: mico's 96600 vertices (3019 words, padded to 3072),
+# one tile, and youtube's 1048576 vertices
+BITMAP_SHAPES = ((2048, 3072), (128, 256), (64, 32768))
+BITMAP_TIMED = (2048, 3072)
+# the JAX package's counts for the forest and host phases (as MAIN_PATH's):
+# wiki-vote's 4-clique, and benchmarks/baseline.json's session mix on
+# email-eu-core 0.25 (session.counts, exec_cache_entries) and forest report
+# on email-eu-core 1.0 (forest.feed_passes, level2_execs, level2_ops_static)
+WIKI_4CLIQUE = 14458
+SESSION_COUNTS = {"T": 11502, "TC": 138732, "TT": 1769583, "4C": 10622,
+                  "4M": {"4-clique": 10622, "diamond": 151646, "4-cycle": 161630,
+                         "paw": 1035535, "4-path": 3252244, "4-star": 1652486}}
+SESSION_EXEC_ENTRIES = 20
+FOREST_REPORT = {"feed_passes": (6, 2), "level2_execs": (19, 10),
+                 "level2_ops_static": (6, 3)}
+# the JAX engine's counters for 4M through count_many on email-eu-core 0.25
+HOST_4M = {"device_compactions": 0, "host_compactions": 3, "items": 358319,
+           "level_kernel_dispatches": 45, "host_syncs": 45}
+HOST_4M_EXECS = {("expand", 2): 3, ("count", 3): 42}
+# the bitmap crossover sweep (benchmarks/bench_kernels.py): 128 rows of up
+# to 1024 keys over a key space of 8192, at these fractions of it
+CROSSOVER = (128, 1024, 8192, (0.01, 0.05, 0.1, 0.2, 0.4))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 INT_OPS_PER_S = 67e12          # H100 SXM non-tensor fp32 rate, as the int rate
 SENTINEL = 2**31 - 1
@@ -164,17 +208,22 @@ KERNELS = {
                                 replaces="src/repro/kernels/intersect.py:482"),
     "vinter": dict(route="cuda", source="src/repro_torch/kernels/csrc/svinter.cu",
                    replaces="src/repro/kernels/svinter.py:59"),
+    "compact_rows": dict(route="cuda", source="src/repro_torch/kernels/csrc/compact.cu",
+                         replaces="src/repro/kernels/compact.py:47"),
+    "bitmap_and_count": dict(route="cuda", source="src/repro_torch/kernels/csrc/bitmap.cu",
+                             replaces="src/repro/kernels/bitmap.py:55"),
 }
 # the count path's kernels (phase 4); the weighted path (5) drives
-# intersect_multi_agg and the sparse path (6) vinter
+# intersect_multi_agg, the sparse path (6) vinter, the host path (8)
+# compact_rows and the bitmap path (9) bitmap_and_count
 COUNT_KERNELS = ("intersect_count", "intersect_expand", "intersect_mark", "intersect_multi")
 
 
 def wrappers() -> dict:
     """Kernel name -> its wrapper, whose ``launches`` counts kernel launches."""
-    from repro_torch.kernels import intersect as K
-    from repro_torch.kernels import svinter as SV
-    return {name: getattr(SV if name == "vinter" else K, name) for name in KERNELS}
+    from repro_torch.kernels import bitmap, compact, intersect, svinter
+    module = {"vinter": svinter, "compact_rows": compact, "bitmap_and_count": bitmap}
+    return {name: getattr(module.get(name, intersect), name) for name in KERNELS}
 
 
 def zero_launches() -> None:
@@ -539,8 +588,99 @@ def _time_vinter_on_spmm_block(SV, report):
                             library_ms=library_ms)
 
 
+def _bytes_bound(nbytes: int) -> tuple[float, str]:
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _parity_compact(CP, report, gen, B, cap, out_cap, densities):
+    """compact_rows bit for bit at one shape over keep densities, with keep
+    set on SENTINEL slots (they must not count), an all-dead row, and the
+    mask as bool and as int32; timed at COMPACT_TIMED beside the masked
+    sort of the JAX host path."""
+    a = sorted_rows(gen, B, cap, 4 * cap)
+    for density in densities:
+        keep = torch.rand((B, cap), generator=gen, device=DEVICE) < density
+        keep[1] = False
+        for k in (keep, torch.where(keep, 3, -1).to(torch.int32)):
+            got = CP.compact_rows(a, k, out_cap)
+            want = CP.compact_rows_ref(a, k, out_cap)
+            torch.cuda.synchronize()
+            err = max((got[0] - want[0]).abs().max().item(),
+                      (got[1] - want[1]).abs().max().item())
+            _record(report, "compact_rows", err)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])) \
+                    or got[1][1] != 0:
+                raise SystemExit(f"[parity] MISMATCH compact_rows B={B} cap={cap} "
+                                 f"out_cap={out_cap} density={density} keep {k.dtype}: {err}")
+        cut = int((want[1] > out_cap).sum())
+        print(f"[parity] compact_rows B={B} cap={cap} out_cap={out_cap} density "
+              f"{density}: equal bit for bit (bool and int32 keep); {cut} rows cut at "
+              f"out_cap", flush=True)
+        if (B, cap, out_cap, density) != COMPACT_TIMED:
+            continue
+        ms = cuda_ms(lambda: CP.compact_rows(a, keep, out_cap))
+        plain_ms = cuda_ms(lambda: CP.compact_rows_ref(a, keep, out_cap))
+
+        def masked_sort():
+            masked = torch.where(keep, a, SENTINEL)
+            return (torch.sort(masked, dim=1).values[:, :out_cap],
+                    (masked != SENTINEL).sum(dim=1, dtype=torch.int32))
+        library_ms = cuda_ms(masked_sort)
+        if not all(torch.equal(x, y) for x, y in zip(masked_sort(), want)):
+            raise SystemExit("[parity] compact_rows != the masked sort")
+        live = int((a != SENTINEL).sum())
+        # live keys and their keep flags read, rows and counts written
+        bound_ms, by = _bytes_bound(live * 5 + B * out_cap * 4 + B * 4)
+        print(f"[parity] compact_rows B={B} cap={cap} out_cap={out_cap} density "
+              f"{density}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {library_ms:.4f} "
+              f"ms masked sort (torch.sort), bound {bound_ms:.4f} ms", flush=True)
+        report["compact_rows"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=by, library_ms=library_ms)
+
+
+def _parity_bitmap(BM, report, gen, B, words):
+    """bitmap_and_count bit for bit on random words (bit 31 included);
+    timed at BITMAP_TIMED."""
+    a, b = (torch.randint(-2**31, 2**31 - 1, (B, words), generator=gen, device=DEVICE,
+                          dtype=torch.int32) for _ in range(2))
+    a[0] = -1
+    got, want = BM.bitmap_and_count(a, b), BM.bitmap_and_count_ref(a, b)
+    torch.cuda.synchronize()
+    _record(report, "bitmap_and_count", (got - want).abs().max().item())
+    if not torch.equal(got, want):
+        raise SystemExit(f"[parity] MISMATCH bitmap_and_count B={B} W={words}")
+    ms = cuda_ms(lambda: BM.bitmap_and_count(a, b))
+    plain_ms = cuda_ms(lambda: BM.bitmap_and_count_ref(a, b))
+    bound_ms, by = _bytes_bound(2 * B * words * 4 + B * 4)
+    print(f"[parity] bitmap_and_count B={B} W={words}: equal bit for bit; {ms:.4f} ms "
+          f"kernel, {plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms", flush=True)
+    if (B, words) == BITMAP_TIMED:
+        # PyTorch has no popcount: no one call computes this function
+        report["bitmap_and_count"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=by, library_ms=None)
+
+
+def _parity_xinter(gen):
+    """ops.xinter (the mark kernel, then compact-rows) on the card against
+    core.batch.batch_inter on the CPU."""
+    from repro_torch.core.batch import batch_inter
+    from repro_torch.kernels import ops
+    for B, cap_a, cap_b, out_cap in ((2048, 256, 128, None), (512, 2048, 2048, 256)):
+        a, b = sorted_rows(gen, B, cap_a, 2 * cap_b), sorted_rows(gen, B, cap_b, 2 * cap_b)
+        bounds, lbounds = bound_vectors(gen, B, 2 * cap_b)
+        got = ops.xinter(a, b, bounds, out_cap=out_cap, lbounds=lbounds)
+        want = batch_inter(a.cpu(), b.cpu(), bounds.cpu(), out_cap=out_cap,
+                           lbounds=lbounds.cpu())
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(got, want)):
+            raise SystemExit(f"[parity] MISMATCH xinter B={B} caps=({cap_a},{cap_b})")
+        print(f"[parity] xinter B={B} caps=({cap_a},{cap_b}) out_cap={out_cap}: equal "
+              f"to batch_inter on the CPU, bit for bit", flush=True)
+
+
 def phase_parity() -> dict:
     """Each kernel against its plain version at the main path's shapes."""
+    from repro_torch.kernels import bitmap as BM
+    from repro_torch.kernels import compact as CP
     from repro_torch.kernels import intersect as K
     from repro_torch.kernels import svinter as SV
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -553,6 +693,11 @@ def phase_parity() -> dict:
     for shape in VINTER_SHAPES:
         _parity_vinter(SV, report, gen, *shape)
     _time_vinter_on_spmm_block(SV, report)
+    for (B, cap, out_cap), densities in COMPACT_SHAPES:
+        _parity_compact(CP, report, gen, B, cap, out_cap, densities)
+    for shape in BITMAP_SHAPES:
+        _parity_bitmap(BM, report, gen, *shape)
+    _parity_xinter(gen)
     return report
 
 
@@ -740,6 +885,206 @@ def phase_sparse() -> dict:
     return {"vinter": vinter.launches}
 
 
+def _timed(run):
+    """(result, seconds) of ``run()``, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _level2(level_execs: dict) -> int:
+    return sum(v for (kind, lv), v in level_execs.items() if kind == "expand" and lv == 2)
+
+
+def _forest_report(graphs_email1) -> None:
+    """benchmarks/bench_mining.py's forest report on email-eu-core 1.0: the
+    six 4-motif plans run independently against one forest pass, on built
+    executables; feed passes, level-2 executions and ops, and both walls."""
+    from repro_torch import Miner
+    from repro_torch.mining.forest import build_forest
+    from repro_torch.mining.plan import FOUR_MOTIFS, compile_pattern
+    plans = [compile_pattern(p) for p in FOUR_MOTIFS.values()]
+    indep_m, fused_m = Miner(graphs_email1, device=DEVICE), Miner(graphs_email1, device=DEVICE)
+    [indep_m.runner.run(pl) for pl in plans]           # executables built
+    fused_m.run_plans(plans)
+    indep_m.runner.level_execs.clear()
+    fused_m.runner.level_execs.clear()
+    indep, t_ind = _timed(lambda: [indep_m.runner.run(pl) for pl in plans])
+    fused, t_fus = _timed(lambda: fused_m.run_plans(plans))
+    st = build_forest(plans).sharing_stats()
+    got = {"feed_passes": (st["feed_passes"]["independent"], st["feed_passes"]["fused"]),
+           "level2_execs": (_level2(indep_m.runner.level_execs),
+                            _level2(fused_m.runner.level_execs)),
+           "level2_ops_static": tuple(sum(v for (_, lv), v in st[k].items() if lv == 2)
+                                      for k in ("plan_ops", "forest_ops"))}
+    print(f"[forest] email-eu-core x1.0 4-motif plans: counts {fused}; {got}; walls "
+          f"{t_ind:.3f}s independent, {t_fus:.3f}s fused (x{t_ind / t_fus:.2f})",
+          flush=True)
+    if fused != indep or got != FOREST_REPORT:
+        raise SystemExit(f"[forest] MISMATCH email-eu-core 1.0: {fused} vs {indep}, "
+                         f"{got} vs {FOREST_REPORT}")
+
+
+def phase_forest(graphs: dict) -> None:
+    """Miner.count_many and aggregate_many: each result equal to the JAX
+    package's and to per-query calls in the same session."""
+    from repro_torch import Miner
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.mining.plan import (FOUR_MOTIF_SHAPES, THREE_CHAIN_INDUCED, TRIANGLE,
+                                         compile_pattern)
+    want_main = {(n, q): w for n, _, qs in MAIN_PATH for q, w in qs}
+    names = list(FOUR_MOTIF_SHAPES)
+    for name, queries, want in (
+            ("mico", [TRIANGLE, THREE_CHAIN_INDUCED],
+             [want_main["mico", "triangle"], want_main["mico", "three-chain-induced"]]),
+            ("wiki-vote", names, [WIKI_4CLIQUE] + [want_main["wiki-vote", q]
+                                                   for q in names[1:]])):
+        miner = Miner(graphs[name, 1.0], device=DEVICE)
+        st0 = dict(miner.stats["runner"])
+        got, dt = _timed(lambda: miner.count_many(queries))
+        st = {k: v - st0[k] for k, v in miner.stats["runner"].items()}
+        execs = dict(miner.runner.level_execs)
+        single, dt1 = _timed(lambda: [miner.count(q) for q in queries])
+        print(f"[forest] {name} x1.0 count_many = {got} (JAX package: {want}) {dt:.3f}s "
+              f"wall, per-query {dt1:.3f}s; level execs {execs}; "
+              f"items {st['items']} compactions {st['device_compactions']} rides "
+              f"{st['count_rides']}", flush=True)
+        if got != want or single != want:
+            raise SystemExit(f"[forest] MISMATCH {name}: {got} / {single} != {want}")
+    _forest_report(get_dataset("email-eu-core", 1.0))
+    # the session mix of bench_mining.py, twice on one session
+    g = graphs["email-eu-core", 0.25]
+    miner = Miner(g, device=DEVICE)
+
+    def mix():
+        return {"T": miner.count("triangle"), "TC": miner.count("three-chain"),
+                "TT": miner.count("tailed-triangle"), "4C": miner.count("4-clique"),
+                "4M": dict(zip(names, miner.count_many(names)))}
+    first, t1 = _timed(mix)
+    rebuilds = miner.stats["rebuilds"]
+    second, t2 = _timed(mix)
+    st = miner.stats
+    print(f"[forest] email-eu-core x0.25 session mix: {first}; rebuilds {rebuilds} then "
+          f"{st['rebuilds'] - rebuilds}, cache entries {st['exec_cache']['entries']}; "
+          f"{t1:.3f}s then {t2:.3f}s", flush=True)
+    if not (first == second == SESSION_COUNTS and st["rebuilds"] == rebuilds
+            and st["exec_cache"]["entries"] == SESSION_EXEC_ENTRIES):
+        raise SystemExit("[forest] MISMATCH email-eu-core session mix")
+    # aggregate_many, and a count and an aggregate leaf in one feed pass
+    wm = Miner(weighted(g), device=DEVICE)
+    batch, dt = _timed(lambda: wm.aggregate_many(names, "sum"))
+    single = [wm.aggregate(q, "sum") for q in names]
+    chunks = wm.metrics.counter("feed_chunks")
+    c0 = chunks.value
+    both = wm.run_plans([compile_pattern(TRIANGLE), compile_pattern(TRIANGLE, aggregate="sum")])
+    fused_chunks = chunks.value - c0
+    c0 = chunks.value
+    wm.count("triangle")
+    print(f"[forest] email-eu-core x0.25 aggregate_many 4M sum = {batch} {dt:.3f}s (per "
+          f"query {single}); T count + T sum in one pass: {both}, {fused_chunks} feed "
+          f"chunks (T alone {chunks.value - c0})", flush=True)
+    if batch != single or both != [SESSION_COUNTS["T"], 2835.9375] \
+            or fused_chunks != chunks.value - c0:
+        raise SystemExit("[forest] MISMATCH aggregate_many / fused count + aggregate")
+
+
+def phase_host(graphs: dict) -> dict:
+    """device_compact=False: the mask, one compact-rows launch and one host
+    read per expand call, then the host oracle. Returns the compact-rows
+    launches of the run."""
+    from repro_torch import Miner
+    from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
+    cp = wrappers()["compact_rows"]
+    names = list(FOUR_MOTIF_SHAPES)
+    zero_launches()
+    host_compactions = 0
+    miner = Miner(graphs["email-eu-core", 0.25], device=DEVICE, device_compact=False)
+    got = miner.count_many(names)
+    st = dict(miner.stats["runner"])
+    host_compactions += st["host_compactions"]
+    print(f"[host] email-eu-core x0.25 4M = {got}; {st}; level execs "
+          f"{dict(miner.runner.level_execs)}", flush=True)
+    if got != list(SESSION_COUNTS["4M"].values()) \
+            or {k: st[k] for k in HOST_4M} != HOST_4M \
+            or dict(miner.runner.level_execs) != HOST_4M_EXECS:
+        raise SystemExit("[host] MISMATCH email-eu-core 4M counters")
+    for name, scale, runs in (("wiki-vote", 1.0, (("4-clique",), names)),
+                              ("mico", 1.0, (("4-clique",),))):
+        dev = Miner(graphs[name, scale], device=DEVICE)
+        host = Miner(graphs[name, scale], device=DEVICE, device_compact=False)
+        for queries in runs:
+            want, t_dev = _timed(lambda: dev.count_many(list(queries)))
+            h0 = host.stats["runner"]["host_compactions"]
+            got, t_host = _timed(lambda: host.count_many(list(queries)))
+            h = host.stats["runner"]["host_compactions"] - h0
+            host_compactions += h
+            print(f"[host] {name} x{scale} {list(queries)}: host path {got} "
+                  f"{t_host:.3f}s, device path {want} {t_dev:.3f}s (wave_speedup "
+                  f"x{t_host / t_dev:.2f}); {h} host compactions", flush=True)
+            if got != want:
+                raise SystemExit(f"[host] MISMATCH {name} {queries}: {got} != {want}")
+    print(f"[host] compact_rows launches {cp.launches}, host compactions "
+          f"{host_compactions}", flush=True)
+    if cp.launches <= 0 or cp.launches != host_compactions:
+        raise SystemExit("[host] compact_rows launches != host compactions")
+    return {"compact_rows": cp.launches}
+
+
+def phase_bitmap(graphs: dict) -> dict:
+    """keys_to_bitmap + xbitmap_count on mico's hub half-edges, equal to the
+    sorted-row count; then the crossover sweep, timed."""
+    import numpy as np
+
+    from repro_torch.graph.csr import padded_rows
+    from repro_torch.kernels import ops
+    from repro_torch.mining.engine import _pow2cap, half_edges
+    bm = wrappers()["bitmap_and_count"]
+    g = graphs["mico", 1.0]
+    edges = half_edges(g)
+    deg = g.degrees.cpu().numpy()
+    # the 2048 half-edges whose smaller end has the highest degree: the
+    # dense rows the bitmap path is for
+    sel = edges[np.argsort(-np.minimum(deg[edges[:, 0]], deg[edges[:, 1]]),
+                           kind="stable")[:2048]]
+    gd = g.to(DEVICE)
+    cap = _pow2cap(int(deg[sel].max()))
+    ra, rb = (padded_rows(gd, torch.from_numpy(sel[:, i].astype(np.int32)).to(DEVICE), cap)[0]
+              for i in (0, 1))
+    zero_launches()
+    got, dt = _timed(lambda: ops.xbitmap_count(ops.keys_to_bitmap(ra, g.num_vertices),
+                                               ops.keys_to_bitmap(rb, g.num_vertices)))
+    launches = bm.launches
+    want = ops.xinter_count(ra, rb)
+    print(f"[bitmap] mico x1.0 {len(sel)} hub half-edges, cap {cap}, V {g.num_vertices}: "
+          f"bitmap count {int(got.sum())} in {dt * 1e3:.3f} ms (with both conversions), "
+          f"sorted-row count {int(want.sum())}; {launches} bitmap launch", flush=True)
+    if launches <= 0 or not torch.equal(got, want):
+        raise SystemExit("[bitmap] MISMATCH xbitmap_count != xinter_count on mico rows")
+    rows, width, hi, fractions = CROSSOVER
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    for frac in fractions:
+        n = min(width, max(1, int(hi * frac)))
+        keys = [torch.sort(torch.rand((rows, hi), generator=gen, device=DEVICE)
+                           .argsort(dim=1)[:, :n], dim=1).values.to(torch.int32)
+                for _ in range(2)]
+        a, b = (torch.nn.functional.pad(k, (0, width - n), value=SENTINEL).contiguous()
+                for k in keys)
+        merge_ms = cuda_ms(lambda: ops.xinter_count(a, b))
+        conv_ms = cuda_ms(lambda: ops.keys_to_bitmap(a, hi))
+        wa, wb = ops.keys_to_bitmap(a, hi), ops.keys_to_bitmap(b, hi)
+        bitmap_ms = cuda_ms(lambda: ops.xbitmap_count(wa, wb))
+        if not torch.equal(ops.xbitmap_count(wa, wb), ops.xinter_count(a, b)):
+            raise SystemExit(f"[bitmap] MISMATCH crossover at {frac}")
+        print(f"[bitmap] crossover {rows} rows x {n} keys of {hi}: merge (intersect_count) "
+              f"{merge_ms:.4f} ms, bitmap kernel {bitmap_ms:.4f} ms, keys_to_bitmap "
+              f"{conv_ms:.4f} ms a side -> {'bitmap' if bitmap_ms < merge_ms else 'merge'}"
+              f" (kernel alone), {'bitmap' if bitmap_ms + 2 * conv_ms < merge_ms else 'merge'}"
+              f" (with both conversions)", flush=True)
+    return {"bitmap_and_count": launches}
+
+
 def _profile(label: str, run) -> None:
     """A warm untraced run of ``run()``, then one under torch.profiler;
     device busy = summed device self time."""
@@ -793,6 +1138,9 @@ def main() -> int:
     counts, launches = phase_main_path(graphs)
     launches.update(phase_weighted(graphs, counts))
     launches.update(phase_sparse())
+    phase_forest(graphs)
+    launches.update(phase_host(graphs))
+    launches.update(phase_bitmap(graphs))
     phase_profile(graphs)
     rows = [{"name": name, **KERNELS[name], "launches": launches[name],
              "parity": True, **report[name]} for name in KERNELS]

@@ -70,6 +70,32 @@ def _scan_compact_parts(rows_a: torch.Tensor, keep: torch.Tensor, out_cap: int):
     return rows[:dump].view(B, out_cap), counts, keep, pos, row
 
 
+def batch_compact_rows(rows_a: torch.Tensor, keep: torch.Tensor, out_cap: int):
+    """Per-row survivor streams from a keep mask, by prefix-sum scatter ->
+    (rows (B, out_cap) front-packed SENTINEL-padded, counts (B,)).
+
+    Survivors keep their order (sorted input => sorted output); a kept
+    SENTINEL slot never counts; counts are not cut at ``out_cap``, rows are.
+    The plain version of the compact-rows kernel, and the O(B·cap)
+    replacement for the masked-sort tail (``torch.sort(where(keep, a,
+    SENTINEL))[:, :out_cap]``), whose rows and counts it equals."""
+    rows, counts, _, _, _ = _scan_compact_parts(rows_a, keep, out_cap)
+    return rows, counts
+
+
+def compact_indices_scan(ok: torch.Tensor):
+    """Order-preserving index compaction: the positions of the set entries
+    of ``ok`` (1-D bool), front-packed with 0 past the live count, and the
+    live count (int32) — the residual worklist pack. The scatter of the
+    dropped positions lands in a dump slot past the end."""
+    n = ok.shape[0]
+    pos = ok.cumsum(0, dtype=torch.int32) - 1
+    tgt = torch.where(ok, pos, n).long()
+    order = torch.zeros(n + 1, dtype=torch.int32, device=ok.device)
+    order.scatter_(0, tgt, torch.arange(n, dtype=torch.int32, device=ok.device))
+    return order[:n], ok.sum(dtype=torch.int32)
+
+
 def batch_compact_scan(rows_a: torch.Tensor, keep: torch.Tensor, out_cap: int,
                        out_items: int):
     """Fused survivor-stream + worklist compaction from one keep mask.
@@ -110,6 +136,14 @@ def batch_inter_compact(rows_a, rows_b, bounds, out_cap: int, out_items: int,
                               out_cap, out_items)
 
 
+def batch_inter(rows_a, rows_b, bounds=None, out_cap: int | None = None,
+                lbounds=None):
+    """Batched S_INTER -> (rows (B, out_cap), counts (B,)); ``out_cap``
+    defaults to min(cap_a, cap_b), the paper's §IV-D bound on the result."""
+    cap = out_cap or min(rows_a.shape[1], rows_b.shape[1])
+    return batch_compact_rows(rows_a, inter_keep(rows_a, rows_b, bounds, lbounds), cap)
+
+
 def batch_member_mark(rows_a: torch.Tensor, rows_b: torch.Tensor) -> torch.Tensor:
     """mark[i, s] = A_i[s] ∈ B_i (and A_i[s] live) — the plain version of the
     mark kernel run unbounded; the engine's ``fused_level=False`` path ANDs
@@ -128,6 +162,13 @@ def batch_sub_count(rows_a, rows_b, bounds=None, lbounds=None) -> torch.Tensor:
     """counts[i] = |{k in A_i \\ B_i : lbounds[i] < k < bounds[i]}| —
     batched S_SUB.C."""
     return sub_keep(rows_a, rows_b, bounds, lbounds).sum(dim=1, dtype=torch.int32)
+
+
+def batch_sub(rows_a, rows_b, bounds=None, out_cap: int | None = None,
+              lbounds=None):
+    """Batched S_SUB -> (rows (B, out_cap or cap_a), counts (B,))."""
+    return batch_compact_rows(rows_a, sub_keep(rows_a, rows_b, bounds, lbounds),
+                              out_cap or rows_a.shape[1])
 
 
 def batch_sub_compact(rows_a, rows_b, bounds, out_cap: int, out_items: int,

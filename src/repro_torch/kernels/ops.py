@@ -12,6 +12,8 @@ from repro_torch.core.batch import (batch_compact_scan, batch_level_agg,
                                     batch_level_compact, batch_level_count)
 from repro_torch.core.stream import SENTINEL
 
+from .bitmap import bitmap_and_count, keys_to_bitmap
+from .compact import compact_rows
 from .intersect import (intersect_count, intersect_expand, intersect_mark,
                         intersect_multi, intersect_multi_agg)
 from .svinter import vinter
@@ -20,6 +22,15 @@ from .svinter import vinter
 def xinter_count(a, b, bounds=None, lbounds=None):
     """Batched bounded S_INTER.C (``lbounds`` = exclusive lower bound)."""
     return intersect_count(a, b, bounds, lbounds)
+
+
+def xinter(a, b, bounds=None, out_cap: int | None = None, lbounds=None):
+    """Batched bounded S_INTER -> (rows (B, out_cap), counts (B,)),
+    ``out_cap`` defaulting to min(cap_a, cap_b): the mark kernel gives the
+    survivors, the compact-rows kernel front-packs them. On the CPU the two
+    plain versions compose to ``core.batch.batch_inter``."""
+    cap = out_cap or min(a.shape[1], b.shape[1])
+    return compact_rows(a, intersect_mark(a, b, bounds, lbounds), cap)
 
 
 def xinter_compact(a, b, bounds=None, out_cap: int | None = None,
@@ -143,3 +154,19 @@ def xvinter(a_keys, a_vals, b_keys, b_vals, op: str = "mac"):
     pair's max / min) — the entry ``sparse.spmm`` and ``sparse.ttv`` go
     through."""
     return vinter(a_keys, a_vals, b_keys, b_vals, op)
+
+
+def xvinter_mac(a_keys, a_vals, b_keys, b_vals, op: str = "mac"):
+    """``xvinter`` under the JAX package's older name."""
+    return xvinter(a_keys, a_vals, b_keys, b_vals, op)
+
+
+def xbitmap_count(a_words, b_words):
+    """Bitmap-path intersection count (the beyond-paper dense path):
+    per row, the popcount of the AND of two ``keys_to_bitmap`` rows."""
+    return bitmap_and_count(a_words, b_words)
+
+
+__all__ = ["xinter", "xinter_count", "xinter_compact", "xmark", "xsub_count",
+           "xsub_compact", "xlevel_count", "xlevel_compact", "xlevel_agg",
+           "xvinter", "xvinter_mac", "xbitmap_count", "keys_to_bitmap"]

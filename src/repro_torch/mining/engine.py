@@ -36,19 +36,37 @@ window-only leaf), leaving one f32 (value, live) pair per chunk on the
 device; the pairs are read once per run and reduced on the host in
 float64, in chunk order.
 
+``run_set`` runs a ``forest.PlanForest`` (a batch of plans merged on their
+shared prefixes) in one feed pass per orientation: a shared expand node is
+dispatched once per chunk and fanned out to its child branches; a child
+whose branch deferred constraints into residuals first gets its own packed
+worklist (``compact_indices_scan``); a count leaf equal to a sibling
+expand's op rides it (its count is the expand's survivor total, read in the
+same meta sync). Results equal per-plan ``run`` calls.
+
+``device_compact=False`` takes the host path instead, the oracle the
+device path is held against: a level's keep mask (one mark launch per
+reference), one compact-rows kernel launch front-packing the survivors,
+one read of (rows, counts) to the host, the ``compact`` oracle
+(``np.nonzero``), and the next wave's chunks uploaded to the device.
+``record=True`` keeps each wave's live rows and vertices in ``trace``, so
+the two paths can be compared wave for wave.
+
 Emit levels (embeddings) raise ``NotImplementedError`` naming the slice
 that brings them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.core.batch import batch_compact_scan
+from repro_torch.core.batch import batch_compact_scan, compact_indices_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
+from repro_torch.kernels.compact import compact_rows
 from repro_torch.kernels.ops import (xinter_compact, xinter_count, xlevel_agg,
                                      xlevel_compact, xlevel_count, xmark,
                                      xsub_compact, xsub_count)
@@ -86,6 +104,44 @@ def _pad_to(x: np.ndarray, n: int, fill) -> np.ndarray:
         return x
     pad = np.full((n - x.shape[0],) + x.shape[1:], fill, dtype=x.dtype)
     return np.concatenate([x, pad], axis=0)
+
+
+@dataclasses.dataclass
+class Wave:
+    """A compacted frontier on the host: prefix rows + the vertex that
+    extends each."""
+
+    rows: np.ndarray    # (N, cap) int32 sorted SENTINEL-padded prefix streams
+    verts: np.ndarray   # (N,) int32 extension vertex (also the bound)
+
+    def __len__(self) -> int:
+        return int(self.verts.shape[0])
+
+
+def compact(rows: np.ndarray, counts: np.ndarray, limit: int | None = None,
+            return_src: bool = False):
+    """Host compaction oracle: expand (rows, counts) into the next Wave.
+
+    Every valid key rows[i, j] (j < counts[i]) becomes a work item whose
+    prefix is rows[i] and whose extension vertex/bound is that key, in
+    row-major (i, j) order — the order the device path's scan compaction
+    gives. The prefix capacity shrinks to the padded max survivor length.
+    ``return_src`` also returns each item's source row index."""
+    counts = counts[: limit] if limit is not None else counts
+    rows = rows[: counts.shape[0]]
+    maxc = int(counts.max()) if counts.size else 0
+    if maxc == 0:
+        return (None, None) if return_src else None
+    cap = round_capacity(maxc)
+    col = np.arange(rows.shape[1])
+    ii, jj = np.nonzero(col[None, :] < counts[:, None])
+    verts = rows[ii, jj].astype(np.int32)
+    wave = Wave(rows=rows[ii, :cap], verts=verts)
+    return (wave, ii) if return_src else wave
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _pow2cap(n: int) -> int:
@@ -143,15 +199,17 @@ def choose_chunk(cap: int, budget_bytes: int = 64 << 20) -> int:
 
 
 class WaveRunner:
-    """Stream-program interpreter: executes a compiled ``WavePlan`` on the
-    device-resident wavefront pipeline.
+    """Stream-program interpreter: executes a compiled ``WavePlan`` (``run``)
+    or a ``PlanForest`` (``run_set``) on the device-resident wavefront
+    pipeline.
 
-    * **executable cache** keyed by (kind, LevelOp, capacities, chunk):
-      an executable is a built level body; a miss is a rebuild
-      (``stats['exec_misses']``);
+    * **executable cache** keyed by (chunk, device_compact, fused_level,
+      kind, LevelOp, capacities, ...): an executable is a built level body;
+      a miss is a rebuild (``stats['exec_misses']``);
     * **fused expand + compaction**: survivors are compacted on the
       device; the only per-level host traffic is the meta vector that sizes
-      the next level's capacities;
+      the next level's capacities (``device_compact=False``: the host path,
+      see the module docstring);
     * **prefix-column forwarding**: the compiler's liveness fields
       (``out_cols``/``gather_refs``) say which matched vertices deeper
       levels reference; they are gathered through the compacted ``src``
@@ -162,20 +220,33 @@ class WaveRunner:
       chunk on the device, summed and read once at the end of ``run``;
       aggregate leaves to one f32 (value, live) pair per chunk, read once
       and reduced on the host.
+
+    ``stats['host_syncs']`` counts the reference engine's sync points: a
+    level's meta read, a residual pack's total, a host-path compaction and
+    one per leaf partial (the port reads a plan's partials in one transfer;
+    the count stays the reference's so that the two engines compare).
+    ``level_execs`` counts level calls per (kind, level).
     """
 
     # ``stats`` keys, in the reference engine's order; each is a registry
     # counter the view derives from
     _STAT_KEYS = ("exec_hits", "exec_misses", "host_syncs",
-                  "device_compactions", "items", "level_kernel_dispatches")
+                  "device_compactions", "host_compactions", "items",
+                  "level_kernel_dispatches", "count_rides")
 
     def __init__(self, g: CSRGraph, exec_cache, chunk: int | None = None,
-                 telemetry: Telemetry | None = None, fused_level: bool = True):
+                 telemetry: Telemetry | None = None, fused_level: bool = True,
+                 device_compact: bool = True, record: bool = False):
         self.g = g
         # general levels: one k-reference launch (True) or one mark launch
         # per reference (False)
         self.fused_level = fused_level
+        # False: every expand takes the host path (compact oracle)
+        self.device_compact = device_compact
+        self.record = record
+        self.trace: list[tuple[int, np.ndarray, np.ndarray]] = []
         self.device = g.device
+        self._pin = self.device.type == "cuda"
         # host copy for the feed and capacity sizing (free when g is on the CPU)
         self.host_g = g.to("cpu")
         # chunk <= 2^15 keeps chunk sizes, and so every counter, equal to the
@@ -192,6 +263,7 @@ class WaveRunner:
         # aggregate-leaf calls: each rides the leaf's one membership launch,
         # so this counts value lanes, not extra launches
         self._ct_value_lanes = self.metrics.counter("value_lane_dispatches")
+        self.level_execs: dict[tuple[str, int], int] = {}
 
     # ------------------------------------------------------------ slice
     @staticmethod
@@ -213,45 +285,54 @@ class WaveRunner:
                 raise NotImplementedError(
                     f"{plan.pattern.name}: level {op.level} ({op.kind}, inter="
                     f"{op.inter}, sub={op.sub}, exclude={op.exclude}) — emit "
-                    "levels (embeddings) arrive with the session slice "
+                    "levels (embeddings) arrive with the next module slice "
                     "(ROADMAP.md, modules still to port)")
 
-    def _level_dispatches(self, op: LevelOp) -> int:
+    def _level_dispatches(self, op: LevelOp, host: bool = False) -> int:
         """Membership-kernel launches one level call issues: 1 for a fused
         or a general level, k per general level with ``fused_level=False``
-        (one mark per reference), 0 for a window-only level. An aggregate
-        leaf counts as its count twin does, as in the reference engine,
-        though it always issues one value-lane launch (none when k = 0)."""
+        and k per host-path level (one mark per reference), 0 for a
+        window-only level. An aggregate leaf counts as its count twin does,
+        as in the reference engine, though it always issues one value-lane
+        launch (none when k = 0)."""
+        k = len(op.inter) + len(op.sub)
+        if host:
+            return k
         if self._fused_shape(op) is not None:
             return 1
-        k = len(op.inter) + len(op.sub)
         if k == 0:
             return 0
         return 1 if self.fused_level else k
 
-    def _bump(self, op: LevelOp) -> None:
-        self._ct["level_kernel_dispatches"].inc(self._level_dispatches(op))
+    def _bump(self, op: LevelOp, host: bool = False) -> None:
+        key = (op.kind, op.level)
+        self.level_execs[key] = self.level_execs.get(key, 0) + 1
+        self._ct["level_kernel_dispatches"].inc(self._level_dispatches(op, host))
 
     # ------------------------------------------------------------ cache
     def _executable(self, key: tuple, build: Callable) -> Callable:
         fn, fresh = self._exec_cache.get_or_build(
-            (self.chunk, self.fused_level) + key, build)
+            (self.chunk, self.device_compact, self.fused_level) + key, build)
         self._ct["exec_misses" if fresh else "exec_hits"].inc()
         return fn
 
     # ------------------------------------------------------------ feed
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """Host array -> the device, from pinned memory without blocking
+        the host when the device is a card."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self._pin:
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     def _edge_feed(self, symmetric: bool = True):
         """Double-buffered level-1 feed: (cap, dv0, dv1, v1_host, n).
 
-        Chunk N+1 is copied to the device (from pinned memory, without
-        blocking the host) before chunk N is handed to the consumer."""
-        pin = self.device.type == "cuda"
+        Chunk N+1 is copied to the device before chunk N is handed to the
+        consumer."""
         pending = None
         for cap, v0, v1, n in edge_chunks(self.host_g, self.chunk, symmetric):
-            t = torch.from_numpy(np.stack([v0, v1]))
-            if pin:
-                t = t.pin_memory()
-            dv = t.to(self.device, non_blocking=True)
+            dv = self._upload(np.stack([v0, v1]))
             if pending is not None:
                 yield pending
             pending = (cap, dv[0], dv[1], v1, n)
@@ -538,29 +619,101 @@ class WaveRunner:
             return outs, v, None
         return fn
 
+    def _plan_expand_host_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int,
+                             out_cap: int):
+        """Host-path twin of ``_plan_expand_fn``: the level's keep mask (one
+        mark launch per reference), then one compact-rows launch ->
+        (rows2 (B, out_cap), counts2 (B,)); compaction into items is the
+        host's (``compact``). The rows and counts equal the reference
+        engine's masked sort ``sort(where(keep, base, SENTINEL))[:, :out_cap]``."""
+        return self._executable(("pexpandh", op, caps_sig, cap_base, out_cap),
+                                lambda: self._expand_host_body(op, caps_sig, out_cap))
+
+    def _expand_host_body(self, op: LevelOp, caps_sig: tuple, out_cap: int):
+        in_cols = self._in_cols(op)
+        caps = dict(caps_sig)
+        keep_of = self._mask_ops(op, caps)
+
+        def fn(g, vals, carry, n):
+            get = dict(zip(in_cols, vals))
+            base = self._base(op, g, get, carry, caps)
+            return compact_rows(base, keep_of(g, base, get, n), out_cap)
+        return fn
+
+    def _residual_pack_fn(self, level: int, residual: tuple, out_items: int):
+        """Per-branch worklist pack: drop the items that fail a child
+        branch's residuals before chunking, so a branch that shares a
+        relaxed ancestor runs exactly the items its own plan would, in the
+        same order (``compact_indices_scan``). Returns (packing fn, the
+        value columns it reads)."""
+        refs = tuple(sorted({c for _, i, j in residual for c in (i, j) if c < level}))
+        fn = self._executable(("rpack", level, residual, out_items),
+                              lambda: self._rpack_body(level, residual, refs, out_items))
+        return fn, refs
+
+    @staticmethod
+    def _rpack_body(level: int, residual: tuple, refs: tuple, out_items: int):
+        def fn(rvals, src, verts, total):
+            get = dict(zip(refs, rvals))
+            s = src.long()
+
+            def val(c):
+                return verts if c == level else get[c][s]
+            idx = torch.arange(out_items, device=src.device)
+            ok = idx < total
+            for kind, i, j in residual:
+                ok = ok & ((val(i) < val(j)) if kind == "lt" else (val(i) != val(j)))
+            order, tot = compact_indices_scan(ok)
+            o = order.long()
+            return src[o], torch.where(idx < tot, verts[o], 0), tot
+        return fn
+
+    def _rows_fn(self, cap: int):
+        """The level-1 prefix rows of a feed chunk (``record`` only)."""
+        return self._executable(("rows", cap),
+                                lambda: lambda g, vs: padded_rows(g, vs, cap)[0])
+
     # ------------------------------------------------------- the interpreter
+    def _record(self, level: int, rows, verts, n: int) -> None:
+        if self.record:
+            self.trace.append((level, _host(rows)[:n].copy(), _host(verts)[:n].copy()))
+
+    def _record_feed(self, cap0: int, dv0, dv1, n: int) -> None:
+        if self.record:
+            self._record(1, self._rows_fn(cap0)(self.g, dv0), dv1, n)
+
+    @staticmethod
+    def _wave_repr(cols2: dict, out_cols, carry2, vch):
+        """Trace representative of a wave chunk (device/host comparable)."""
+        if carry2 is not None:
+            return carry2
+        if out_cols:
+            return torch.stack([cols2[c] for c in out_cols], dim=1)
+        return vch
+
     def _finalize(self, plan: WavePlan, parts: list):
-        """Reduce one plan's per-chunk device partials: one host read."""
+        """Reduce one plan's partials — int64 device scalars and, for a count
+        riding an expand, host ints — in one host read."""
         agg = plan.ops[-1].agg
         if agg is not None:
             return self._finalize_agg(agg, parts)
-        if not parts:
-            return 0
-        total = int(torch.stack(parts).sum())
-        self._ct["host_syncs"].inc()
+        dev = [p for p in parts if isinstance(p, torch.Tensor)]
+        total = sum(p for p in parts if not isinstance(p, torch.Tensor))
+        if dev:
+            total += int(torch.stack(dev).sum())
         if total % plan.div:
             raise RuntimeError(f"{plan.pattern.name}: total {total} is not a "
                                f"multiple of div {plan.div}")
         return total // plan.div
 
-    def _finalize_agg(self, agg: str, parts: list) -> float:
+    @staticmethod
+    def _finalize_agg(agg: str, parts: list) -> float:
         """Reduce the f32 (value, live) pairs in float64 on the host, in
         chunk order, as the reference engine does; 0.0 when no embedding
         is live (a weighted query over zero embeddings aggregates to 0.0)."""
         if not parts:
             return 0.0
         pairs = torch.stack(parts).cpu().numpy().astype(np.float64)
-        self._ct["host_syncs"].inc()
         value, live = None, 0.0
         for x, n in pairs.tolist():
             live += n
@@ -574,42 +727,155 @@ class WaveRunner:
                 value = min(value, x)
         return value if live > 0 else 0.0
 
+    def _feed_caps(self, cap0: int, need1: bool, v1h) -> dict:
+        caps = {0: cap0}
+        if need1:
+            caps[1] = _neighbor_cap(self.host_g, v1h)
+        return caps
+
     def run(self, plan: WavePlan):
         """Execute a compiled counting or aggregate ``WavePlan``; returns the
         count (divided by ``plan.div``) or the aggregate (a float)."""
         self._require_slice(plan)
-        op0 = plan.ops[0]
+        need1 = 1 in plan.ops[0].row_refs()
         outs: list = []
         for cap0, dv0, dv1, v1h, n in self._edge_feed(plan.symmetric):
             self._ct_feed_chunks.inc()
-            caps = {0: cap0}
-            if 1 in op0.row_refs():
-                caps[1] = _neighbor_cap(self.host_g, v1h)
-            outs += self._plan_descend(plan, 0, {0: dv0, 1: dv1}, caps, None, n)
+            self._record_feed(cap0, dv0, dv1, n)
+            outs += self._plan_descend(plan, 0, {0: dv0, 1: dv1},
+                                       self._feed_caps(cap0, need1, v1h), None, n)
+        self._ct["host_syncs"].inc(len(outs))
         return self._finalize(plan, outs)
+
+    def run_set(self, forest):
+        """Execute a ``forest.PlanForest``: each feed orientation is iterated
+        once, every trie root consumes the same device chunks, and shared
+        interior nodes run their expand and compaction once before fanning
+        out to their child branches. Returns per-plan results in
+        ``forest.plans`` order, equal to running each plan through ``run``."""
+        for plan in forest.plans:
+            self._require_slice(plan)
+        acc: list[list] = [[] for _ in forest.plans]
+        for symmetric, roots in ((True, forest.symmetric_roots),
+                                 (False, forest.directed_roots)):
+            if not roots:
+                continue
+            need1 = any(1 in r.op.row_refs() for r in roots)
+            for cap0, dv0, dv1, v1h, n in self._edge_feed(symmetric):
+                self._ct_feed_chunks.inc()
+                self._record_feed(cap0, dv0, dv1, n)
+                caps = self._feed_caps(cap0, need1, v1h)
+                for root in roots:
+                    self._forest_descend(root, {0: dv0, 1: dv1}, caps, None, n, acc)
+        self._ct["host_syncs"].inc(sum(len(a) for a in acc))
+        return [self._finalize(plan, parts) for plan, parts in zip(forest.plans, acc)]
+
+    def _leaf(self, op: LevelOp, caps_sig: tuple, cap_base: int, vals, carry, n):
+        """One count or aggregate leaf call -> its device partial."""
+        self._bump(op)
+        if op.agg is not None:
+            self._ct_value_lanes.inc()
+            fn = self._plan_agg_fn(op, caps_sig, cap_base)
+        else:
+            fn = self._plan_count_fn(op, caps_sig, cap_base)
+        return fn(self.g, vals, carry, n)
+
+    def _level_args(self, op: LevelOp, cols: dict, caps: dict, carry):
+        """(caps_sig, cap_base, vals, b, out_cap, out_items) of one level call."""
+        caps_sig = tuple(sorted((c, caps[c]) for c in op.row_refs()))
+        cap_base = int(carry.shape[1]) if op.use_carry else caps[op.base]
+        vals = tuple(cols[c] for c in self._in_cols(op))
+        b = int(carry.shape[0]) if op.use_carry else int(cols[op.base].shape[0])
+        out_cap = min([cap_base] + [caps[j] for j in op.inter])
+        out_items = -(-b * out_cap // self.chunk) * self.chunk
+        return caps_sig, cap_base, vals, b, out_cap, out_items
+
+    def _forest_descend(self, node, cols: dict, caps: dict, carry, n: int,
+                        acc: list) -> None:
+        """Execute one forest node on a wave chunk; fan out over children.
+
+        The per-op machinery of ``_plan_descend``, except that an expand's
+        chunks feed every child branch, and a leaf's partial goes to each
+        plan that owns it."""
+        op = node.op
+        caps_sig, cap_base, vals, b, out_cap, out_items = \
+            self._level_args(op, cols, caps, carry)
+        if op.kind == "count":
+            part = self._leaf(op, caps_sig, cap_base, vals, carry, n)
+            for i in node.plans:
+                acc[i].append(part)
+            return
+        if node.ride_plans:
+            self._ct["count_rides"].inc(len(node.ride_plans))
+        if not self.device_compact:
+            # the host path packs no residuals: every child reads the wave
+            ride_out: dict = {}
+            for cols2, caps2, carry2, vch, m in self._expand_chunks_host(
+                    op, caps_sig, cap_base, out_cap, cols, vals, carry, n, ride_out):
+                self._record(op.level + 1, self._wave_repr(cols2, op.out_cols, carry2, vch),
+                             vch, m)
+                for child in node.children:
+                    self._forest_descend(child, cols2, caps2, carry2, m, acc)
+            if "count_part" in ride_out:
+                for i in node.ride_plans:
+                    acc[i].append(ride_out["count_part"])
+                # read with the compaction: no sync of its own at the end
+                self._ct["host_syncs"].dec(len(node.ride_plans))
+            return
+        exp = self._expand_device(op, caps_sig, cap_base, out_cap, out_items, vals,
+                                  carry, n)
+        if exp is None:
+            return
+        rows2, src, verts2, total, caps2, cap2 = exp
+        if node.ride_plans:
+            # the riding leaf's count is the expand's survivor total, read in
+            # the level's meta sync: no sync of its own at the end
+            for i in node.ride_plans:
+                acc[i].append(total)
+            self._ct["host_syncs"].dec(len(node.ride_plans))
+        # children that kept every constraint of the shared node read the
+        # compacted worklist as it is; a child whose branch deferred
+        # constraints into residuals gets its own packed worklist first
+        feeds = []
+        shared = [ch for ch in node.children if not ch.op.residual]
+        if shared:
+            feeds.append((shared, src, verts2, total))
+        for ch in node.children:
+            if not ch.op.residual:
+                continue
+            pfn, refs = self._residual_pack_fn(op.level, ch.op.residual,
+                                               int(src.shape[0]))
+            src_b, verts_b, tot_b = pfn(tuple(cols[c] for c in refs), src, verts2, total)
+            tot_b = int(tot_b)
+            self._ct["host_syncs"].inc()
+            if tot_b:
+                feeds.append(([ch], src_b, verts_b, tot_b))
+        for children, s_, v_, t_ in feeds:
+            for cols2, carry2, vch, m in self._expand_chunks(
+                    op, b, out_cap, cap2, rows2, s_, v_, cols, t_):
+                self._record(op.level + 1, self._wave_repr(cols2, op.out_cols, carry2, vch),
+                             vch, m)
+                for child in children:
+                    self._forest_descend(child, cols2, caps2, carry2, m, acc)
 
     def _plan_descend(self, plan: WavePlan, oi: int, cols: dict, caps: dict,
                       carry, n: int) -> list:
         """Execute plan.ops[oi] on one wave chunk; recurse over survivors."""
         op = plan.ops[oi]
-        caps_sig = tuple(sorted((c, caps[c]) for c in op.row_refs()))
-        cap_base = int(carry.shape[1]) if op.use_carry else caps[op.base]
-        vals = tuple(cols[c] for c in self._in_cols(op))
+        caps_sig, cap_base, vals, b, out_cap, out_items = \
+            self._level_args(op, cols, caps, carry)
         if op.kind == "count":
-            self._bump(op)
-            if op.agg is not None:
-                self._ct_value_lanes.inc()
-                fn = self._plan_agg_fn(op, caps_sig, cap_base)
-            else:
-                fn = self._plan_count_fn(op, caps_sig, cap_base)
-            return [fn(self.g, vals, carry, n)]
-        b = int(carry.shape[0]) if op.use_carry else int(cols[op.base].shape[0])
-        out_cap = min([cap_base] + [caps[j] for j in op.inter])
-        out_items = -(-b * out_cap // self.chunk) * self.chunk
+            return [self._leaf(op, caps_sig, cap_base, vals, carry, n)]
+        if self.device_compact:
+            chunks = self._expand_chunks_device(op, caps_sig, cap_base, out_cap,
+                                                out_items, b, cols, vals, carry, n)
+        else:
+            chunks = self._expand_chunks_host(op, caps_sig, cap_base, out_cap, cols,
+                                              vals, carry, n)
         parts: list = []
-        for cols2, caps2, carry2, m in self._expand_chunks_device(
-                op, caps_sig, cap_base, out_cap, out_items, b, cols, vals,
-                carry, n):
+        for cols2, caps2, carry2, vch, m in chunks:
+            self._record(op.level + 1, self._wave_repr(cols2, op.out_cols, carry2, vch),
+                         vch, m)
             parts += self._plan_descend(plan, oi + 1, cols2, caps2, carry2, m)
         return parts
 
@@ -633,7 +899,7 @@ class WaveRunner:
     def _expand_chunks(self, op, b, out_cap, cap2, rows2, src, verts2, cols,
                        total):
         """Slice a compacted (src, verts) worklist into next-level device
-        chunks; yields (cols2, carry2, m)."""
+        chunks; yields (cols2, carry2, vch, m)."""
         cfn = self._plan_chunk_fn(op, b, out_cap, cap2, self.chunk)
         fwd = [c for c in op.out_cols if c < op.level]
         fwdvals = tuple(cols[c] for c in fwd)
@@ -643,17 +909,54 @@ class WaveRunner:
             cols2 = dict(zip(fwd, outs))
             if op.level in op.out_cols:
                 cols2[op.level] = vch
-            yield cols2, carry2, m
+            yield cols2, carry2, vch, m
 
     def _expand_chunks_device(self, op, caps_sig, cap_base, out_cap,
                               out_items, b, cols, vals, carry, n):
         """Run one expand level on the device; yield the next wave's chunks
-        as (cols2, caps2, carry2, m)."""
+        as (cols2, caps2, carry2, vch, m)."""
         exp = self._expand_device(op, caps_sig, cap_base, out_cap, out_items,
                                   vals, carry, n)
         if exp is None:
             return
         rows2, src, verts2, total, caps2, cap2 = exp
-        for cols2, carry2, m in self._expand_chunks(
+        for cols2, carry2, vch, m in self._expand_chunks(
                 op, b, out_cap, cap2, rows2, src, verts2, cols, total):
-            yield cols2, caps2, carry2, m
+            yield cols2, caps2, carry2, vch, m
+
+    def _expand_chunks_host(self, op, caps_sig, cap_base, out_cap, cols, vals,
+                            carry, n, ride_out: dict | None = None):
+        """Host-path twin of ``_expand_chunks_device``, with the same
+        yield: the level's keep mask and one compact-rows launch on the
+        device, one read of (rows, counts), the ``compact`` oracle, and the
+        next wave's chunks uploaded. ``ride_out`` (forest count rides) gets
+        the survivor total under ``"count_part"``."""
+        self._bump(op, host=True)
+        hfn = self._plan_expand_host_fn(op, caps_sig, cap_base, out_cap)
+        rows2, counts2 = hfn(self.g, vals, carry, n)
+        rows_h, counts_h = _host(rows2), _host(counts2)     # the level's host sync
+        if ride_out is not None:
+            ride_out["count_part"] = int(counts_h.sum(dtype=np.int64))
+        wave, ii = compact(rows_h, counts_h, return_src=True)
+        self._ct["host_syncs"].inc()
+        self._ct["host_compactions"].inc()
+        if wave is None:
+            return
+        total = len(wave)
+        self._ct["items"].inc(total)
+        fwd = [c for c in op.out_cols if c < op.level]
+        hostcols = {c: _host(cols[c])[ii] for c in fwd}
+        caps2 = {c: _neighbor_cap(self.host_g, wave.verts if c == op.level
+                                  else hostcols[c])
+                 for c in op.gather_refs}
+        for lo in range(0, total, self.chunk):
+            m = min(self.chunk, total - lo)
+            sl = slice(lo, lo + self.chunk)
+            cols2 = {c: self._upload(_pad_to(hostcols[c][sl], self.chunk, 0))
+                     for c in fwd}
+            vch = self._upload(_pad_to(wave.verts[sl], self.chunk, 0))
+            if op.level in op.out_cols:
+                cols2[op.level] = vch
+            carry2 = self._upload(_pad_to(wave.rows[sl], self.chunk, SENTINEL)) \
+                if op.carry_out else None
+            yield cols2, caps2, carry2, vch, m

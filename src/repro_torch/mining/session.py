@@ -2,22 +2,30 @@
 
     m = Miner(graph)                   # graph moves to the card once
     m.count("triangle")                # -> int
-    m.count("5-clique")
+    m.count_many(["4-clique", "diamond", "4-cycle",
+                  "paw", "4-path", "4-star"])   # -> list[int], one pass
     m.aggregate("triangle", "sum")     # -> float, on a weighted graph
 
-The counterpart of ``repro.mining.session``. Every query runs through two
-stages, each memoised for the session's lifetime:
+The counterpart of ``repro.mining.session``. Every query runs through
+three stages, each memoised for the session's lifetime:
 
 **compile** — a query (a name from ``plan._NAMED_QUERIES``, a ``Motif``
 shape, or an explicit ``Pattern``) lowers to a ``WavePlan`` via
 ``plan.compile_pattern``; a ``Motif`` first gets its matching order from
 ``forest.schedule_patterns``. Plans are cached per (query, aggregate op).
 
-**execute** — ``engine.WaveRunner`` interprets the plan. The graph's CSR
-tensors move to the session's device once, at construction, and every
-built level executable lives in the session's ``ExecutableCache`` (keys:
-``(chunk, fused_level, kind, LevelOp, capacity signature, ...)``), so a
-repeated query rebuilds nothing (``stats['rebuilds']`` counts the misses).
+**schedule** — for a batch (``count_many``, ``aggregate_many``), the
+matching-order search (``forest.schedule_patterns``) picks each ``Motif``'s
+order to share the most prefix across the batch, and ``forest.build_forest``
+merges the plans into a ``PlanForest``; forests are cached per batch.
+
+**execute** — ``engine.WaveRunner`` interprets the plan or the forest. The
+graph's CSR tensors move to the session's device once, at construction,
+and every built level executable lives in the session's
+``ExecutableCache`` (keys: ``(chunk, device_compact, fused_level, kind,
+LevelOp, capacity signature, ...)``), so a repeated query rebuilds nothing
+(``stats['rebuilds']`` counts the misses). ``device_compact=False`` takes
+the host-compaction path (``engine`` module docstring).
 
 **Value streams** — on a weighted graph (``graph.with_edge_values`` or
 ``build_csr(..., edge_values=)``) ``aggregate(query, op)`` reduces the
@@ -34,7 +42,7 @@ single-threaded.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -42,7 +50,7 @@ from repro_torch.graph.csr import CSRGraph
 from repro_torch.obs import LegacyStatsView, Telemetry
 
 from .engine import WaveRunner
-from .forest import schedule_patterns
+from .forest import PlanForest, build_forest, schedule_patterns
 from .plan import Motif, WavePlan, compile_pattern, resolve_query
 
 __all__ = ["ExecutableCache", "Miner", "MinerConfig"]
@@ -83,12 +91,15 @@ class MinerConfig:
     chunk: int | None = None          # wave chunk; None = auto-sized
     device: str = "cuda"              # "cpu" runs the kernels' plain versions
     fused_level: bool = True          # general levels: one k-reference launch
+    device_compact: bool = True       # False: the host compaction path
 
 
 class Miner:
-    """A graph-resident mining session: compile → execute."""
+    """A graph-resident mining session: compile → schedule → execute."""
 
-    _SESSION_KEYS = ("queries", "plan_hits", "plan_misses")
+    # session counters, in the reference session's order
+    _SESSION_KEYS = ("queries", "plan_hits", "plan_misses",
+                     "schedule_hits", "schedule_misses")
 
     def __init__(self, graph: CSRGraph, config: MinerConfig | None = None,
                  **overrides):
@@ -111,8 +122,10 @@ class Miner:
         self.exec_cache = ExecutableCache()
         self._runner = WaveRunner(self.graph, self.exec_cache, chunk=config.chunk,
                                   telemetry=self.telemetry,
-                                  fused_level=config.fused_level)
+                                  fused_level=config.fused_level,
+                                  device_compact=config.device_compact)
         self._plans: dict = {}
+        self._forests: dict[tuple, PlanForest] = {}
         self._stats = LegacyStatsView()
         self._sct = {k: self._stats.expose_counter(k, self.metrics)
                      for k in self._SESSION_KEYS}
@@ -132,10 +145,37 @@ class Miner:
         plan = self._plans[key] = compile_pattern(pat, aggregate=aggregate)
         return plan
 
+    def schedule(self, queries: Sequence, aggregate: str | None = None) -> PlanForest:
+        """Lower a batch to one ``PlanForest`` (cached per batch): ``Motif``
+        members get their matching orders from the joint shared-prefix
+        search, with explicit ``Pattern`` members as fixed points, and the
+        compiled plans merge into one prefix trie."""
+        resolved = tuple(resolve_query(q) for q in queries)
+        key = (resolved, False, aggregate)     # (batch, emit, aggregate)
+        forest = self._forests.get(key)
+        if forest is not None:
+            self._sct["schedule_hits"].inc()
+            return forest
+        self._sct["schedule_misses"].inc()
+        plans = []
+        for r, p in zip(resolved, schedule_patterns(resolved)):
+            plan = compile_pattern(p, aggregate=aggregate)
+            self._plans.setdefault((r, False, aggregate), plan)
+            plans.append(plan)
+        forest = self._forests[key] = build_forest(plans)
+        return forest
+
     def count(self, query) -> int:
         """Count embeddings of one pattern query."""
         self._sct["queries"].inc()
         return self._runner.run(self.compile(query))
+
+    def count_many(self, queries: Sequence) -> list[int]:
+        """Count a batch of queries in one fused forest pass; results are
+        positional and equal to per-query ``count`` calls on the same
+        scheduled patterns."""
+        self._sct["queries"].inc()
+        return self._runner.run_set(self.schedule(queries))
 
     def _require_values(self) -> None:
         if self.graph.edge_values is None:
@@ -151,6 +191,30 @@ class Miner:
         self._require_values()
         self._sct["queries"].inc()
         return self._runner.run(self.compile(query, aggregate=op))
+
+    def aggregate_many(self, queries: Sequence, op: str = "sum") -> list[float]:
+        """Aggregate a batch of queries in one fused forest pass: the
+        aggregate leaves share the forest's expands as ``count_many``'s
+        leaves do."""
+        self._require_values()
+        self._sct["queries"].inc()
+        return self._runner.run_set(self.schedule(queries, aggregate=op))
+
+    def run_plans(self, plans: Sequence[WavePlan]) -> list:
+        """Execute compiled plans: one runs directly, several fuse through a
+        forest cached on their canonical keys."""
+        self._sct["queries"].inc()
+        plans = list(plans)
+        if len(plans) == 1:
+            return [self._runner.run(plans[0])]
+        key = ("plans", tuple(p.canonical_key() for p in plans))
+        forest = self._forests.get(key)
+        if forest is None:
+            self._sct["schedule_misses"].inc()
+            forest = self._forests[key] = build_forest(plans)
+        else:
+            self._sct["schedule_hits"].inc()
+        return self._runner.run_set(forest)
 
     @property
     def runner(self) -> WaveRunner:

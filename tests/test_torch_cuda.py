@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from repro_torch import Miner
+from repro_torch.core.stream import SENTINEL
 from repro_torch.graph import edge_list, edge_weights, get_dataset, with_edge_values
+from repro_torch.kernels import bitmap as BM
+from repro_torch.kernels import compact as CP
 from repro_torch.kernels import intersect as K
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import svinter as SV
@@ -262,3 +265,66 @@ def test_sparse_on_card_equals_cpu(cuda):
     vals = rng.normal(size=40).astype(np.float32)
     got, want = ttv(t, keys, vals, fiber_block=64)[2], ttv(t, keys, vals, 64, device="cpu")[2]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,cap,out_cap,density", [
+    (64, 128, 128, 0.3), (32, 2048, 2048, 0.05), (32, 2048, 2048, 1.0),
+    (300, 256, 64, 0.9), (5, 640, 1, 0.5), (7, 33, 17, 0.6)])
+def test_compact_rows_kernel_equals_plain_version(cuda, B, cap, out_cap, density):
+    """Rows cut at out_cap, counts not; all-dead rows; keep set on
+    SENTINEL slots; bool and int32 keep masks; caps not a multiple of 128."""
+    rng = np.random.default_rng(B + cap + out_cap)
+    a = make_rows(rng, B, cap, 4 * cap)
+    keep = rng.random((B, cap)) < density
+    keep[1] = False
+    for k in (keep, np.where(keep, 2, -1).astype(np.int32)):
+        n = CP.compact_rows.launches
+        got = CP.compact_rows(T(a).to(cuda), T(k).to(cuda), out_cap)
+        torch.cuda.synchronize()
+        assert CP.compact_rows.launches == n + 1
+        want = CP.compact_rows_ref(T(a), T(k), out_cap)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert got[1][1] == 0 and (got[0][1] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("B,words", [(128, 256), (2048, 3072), (64, 32768)])
+def test_bitmap_kernel_equals_plain_version(cuda, B, words):
+    gen = torch.Generator(device=cuda).manual_seed(B + words)
+    a = torch.randint(-2**31, 2**31 - 1, (B, words), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    b = torch.randint(-2**31, 2**31 - 1, (B, words), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    a[0] = -1                                      # every bit, bit 31 too
+    n = BM.bitmap_and_count.launches
+    got = BM.bitmap_and_count(a, b)
+    torch.cuda.synchronize()
+    assert BM.bitmap_and_count.launches == n + 1
+    assert torch.equal(got.cpu(), BM.bitmap_and_count_ref(a.cpu(), b.cpu()))
+    assert torch.equal(got, BM.bitmap_and_count_ref(a, b))
+
+
+def test_bitmap_count_equals_sorted_row_count_on_card(cuda):
+    a, b, _, _ = make_case(9, 256, 384, 256)
+    ta, tb = T(a).to(cuda), T(b).to(cuda)
+    nbits = int(max(a[a != SENTINEL].max(), b[b != SENTINEL].max())) + 1
+    got = tops.xbitmap_count(tops.keys_to_bitmap(ta, nbits), tops.keys_to_bitmap(tb, nbits))
+    assert torch.equal(got, tops.xinter_count(ta, tb))
+    rows, counts = tops.xinter(ta, tb)
+    want = tops.xinter(T(a), T(b))
+    assert torch.equal(rows.cpu(), want[0]) and torch.equal(counts.cpu(), want[1])
+
+
+def test_forest_and_host_path_on_card_equal_cpu(cuda):
+    """count_many in both modes on the card: counts and counters of the CPU
+    run; one compact-rows launch per host compaction."""
+    g = get_dataset("email-eu-core", 0.25)
+    names = ["4-clique", "diamond", "4-cycle", "paw", "4-path", "4-star"]
+    for dc in (True, False):
+        dev = Miner(g, device_compact=dc)
+        cpu = Miner(g, device="cpu", device_compact=dc)
+        n = CP.compact_rows.launches
+        assert dev.count_many(names) == cpu.count_many(names) == \
+            [10622, 151646, 161630, 1035535, 3252244, 1652486]
+        assert dev.stats["runner"] == cpu.stats["runner"]
+        assert CP.compact_rows.launches - n == dev.stats["runner"]["host_compactions"]
+        assert dev.count_many(["triangle", "three-chain"]) == [11502, 138732]
