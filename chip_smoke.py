@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases card,build,parity,csr     # kernels only
+    python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
-Phases, each printing its own lines; any mismatch or exception exits
-non-zero:
+Phases, each printing its own lines and its seconds; any mismatch or
+exception exits non-zero:
 
   1. card     nvidia-smi name and power limit, torch and CUDA versions
   2. build    nvcc builds every CUDA source of the port from the checkout,
@@ -16,21 +18,29 @@ non-zero:
               the value-lane and S_VINTER kernels over every op; compact-rows
               over keep densities, cut rows, dead rows and SENTINEL slots;
               the bitmap count over random words), bit for bit on dyadic
-              values and within rtol 1e-6 on others, with both versions
-              timed by CUDA events; ops.xinter against the CPU's batch_inter
-  4. main     repro_torch.Miner counts triangles, cliques, three-chains and
+              values and within rtol 1e-6 on others; each kernel timed three
+              ways (kernel_times: device ms, call ms, host us per call) and
+              its plain version by CUDA events; ops.xinter against the CPU's
+              batch_inter
+  4. csr      the count and aggregate leaves' CSR-operand forms on a
+              synthetic CSR of the same rows, against their plain versions:
+              warp-a-row and block-a-row caps, rows past shared memory, rows
+              cut at their cap, empty rows, the last vertex, unaligned row
+              starts, bound-0 rows; timed as in parity
+  5. main     repro_torch.Miner counts triangles, cliques, three-chains and
               the 4-motifs on mico, youtube, wiki-vote and email-eu-core at
               the sizes below, and 4-cycle once more with fused_level=False;
               each count must equal the JAX package's (mico's three-chains
-              also the closed form)
-  5. weighted Miner.aggregate (sum, max, min) on the same graphs with
+              also the closed form); a triangle's leaf gathers no padded rows
+  6. weighted Miner.aggregate (sum, max, min) on the same graphs with
               dyadic edge weights: each value must equal the JAX package's
               (bit for bit where f32 holds every partial sum, else within
               rtol 1e-6), with the feed chunks and level dispatches of its
-              unweighted twin and one value-lane launch per leaf call
-  6. sparse   repro_torch.sparse.spmsp_matmul and ttv at the paper's Table
+              unweighted twin and one value-lane launch per leaf call; a
+              weighted triangle's leaf gathers no padded rows
+  7. sparse   repro_torch.sparse.spmsp_matmul and ttv at the paper's Table
               VI sizes, against float64 numpy products
-  7. forest   Miner.count_many (the plan forest): TM on mico, 4M on
+  8. forest   Miner.count_many (the plan forest): TM on mico, 4M on
               wiki-vote, each equal to the JAX package's counts and to
               per-query counts in the same session; the forest's static
               and dynamic sharing on email-eu-core 1.0 (feed passes, level-2
@@ -38,21 +48,23 @@ non-zero:
               of benchmarks/bench_mining.py twice on email-eu-core 0.25 (the
               baseline.json counts, nothing rebuilt on the second pass);
               aggregate_many against per-query aggregates
-  8. host     the host-compaction path (device_compact=False): the JAX
+  9. host     the host-compaction path (device_compact=False): the JAX
               package's counters on email-eu-core 0.25 4M, wiki-vote 4C and
               4M equal to the device path's counts, mico 4C in both modes
               timed; one compact-rows launch per host compaction
-  9. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
+ 10. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
               equal to the sorted-row count of the same rows; the
               merge-against-bitmap crossover sweep of
               benchmarks/bench_kernels.py, timed on the card
- 10. profile  mico's queries once more under torch.profiler: device busy
+ 11. profile  mico's queries once more under torch.profiler: device busy
               time against the untraced wall time, and the top device kernels
- 11. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 12. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
-(4, 5, 6, 8 or 9) and must be > 0 just after it; the kernels line reports
-those counts.
+(5, 6, 7, 9 or 10) and must be > 0 just after it; the kernels line reports
+those counts. --phases runs a subset (the result lines are printed only when
+every phase ran); --src measures another checkout's repro_torch, such as a
+parent commit unpacked with git archive, with this script.
 
 Imports nothing of JAX or of the JAX package. Needs one card; exits non-zero,
 printing no result, when torch sees no CUDA device or when the repository's
@@ -159,6 +171,19 @@ TIMED_SHAPE = (2048, 2048, 2048)
 MULTI_SHAPES = ((2048, 128, 2, 128), (2048, 2048, 2, 2048), (128, 128, 3, 32768))
 MULTI_POLS = ((1,), (0,), (1, 0), (0, 0), (1, 1, 0))
 MULTI_TIMED = (2048, 2048, 2, 2048)
+# the leaves' CSR-operand forms on a synthetic CSR of sorted_rows' live keys
+# (rows start on any 4-byte boundary, some are empty, the last vertex is
+# read): (B, cap_a, cap_b, cut) of the count form, each row read at
+# cap // cut, so cut 2 cuts every row past its first cap // 2 keys; caps up
+# to 1024 run a warp a row, 2048 a block a row, 32768 past shared memory
+CSR_SHAPES = ((2048, 128, 128, 1), (2048, 1024, 1024, 1), (2048, 2048, 2048, 1),
+              (2048, 2048, 2048, 2), (128, 128, 32768, 1))
+# (B, cap_a, k, cap_b, cut) of the aggregate form; odd references read at
+# half the cap
+CSR_AGG_SHAPES = ((2048, 128, 2, 128, 1), (2048, 1024, 1, 1024, 1), (2048, 1024, 2, 1024, 1),
+                  (2048, 2048, 2, 2048, 1), (2048, 2048, 2, 2048, 2), (128, 128, 3, 32768, 1))
+# the weighted triangle leaf's shape: one INTER reference, a warp a row
+CSR_AGG_TRIANGLE = (2048, 1024, 1, 1024)
 # compact-rows: (B, cap, out_cap) x keep densities; (4096, 256, 64) cuts rows
 COMPACT_SHAPES = (((2048, 2048, 2048), (0.05, 0.3, 1.0)), ((2048, 128, 128), (0.3,)),
                   ((4096, 256, 64), (0.3, 1.0)))
@@ -275,6 +300,52 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_times(fn, reps: int = 20, host_calls: int = 1000) -> dict:
+    """Three times of one wrapper call ``fn()``, which launches one kernel:
+
+      ms         call ms: CUDA events around ``reps`` back-to-back calls
+                 (``cuda_ms``); the host's cost of a call when the card
+                 finishes first
+      device_ms  the kernel's own device time per launch, from
+                 torch.profiler's CUDA activity over ``reps`` calls (the
+                 mean over the launches the trace holds)
+      host_us    host microseconds per call: ``host_calls`` calls timed by
+                 the host clock with no synchronize between them
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ms = cuda_ms(fn, reps)
+    # the wrapper launches its kernel and nothing else on the card; a trace
+    # may miss launches at its edges, or all of them now and then: the mean
+    # is over the launches held by the first of three traces that holds any
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and not e.key.startswith(("Memcpy", "Memset"))]
+        if dev:
+            break
+    launched = sum(e.count for e in dev)
+    if not 0 < launched <= reps or len(dev) != 1:
+        raise SystemExit(f"[times] the profiler saw {launched} launches of {len(dev)} "
+                         f"kernels for {reps} calls: {[e.key[:60] for e in dev]}")
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / launched
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(host_calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / host_calls * 1e6
+    torch.cuda.synchronize()
+    return {"ms": ms, "device_ms": device_ms, "host_us": host_us}
+
+
+def _times_text(t: dict) -> str:
+    return (f"{t['device_ms']:.4f} ms device, {t['ms']:.4f} ms a call, "
+            f"{t['host_us']:.1f} us host")
+
+
 def phase_card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -350,20 +421,20 @@ def _parity_pair(K, report, gen, B, cap_a, cap_b):
                              f"bounds={'set' if bd is not None else 'None'}: {errs}")
     hits = int(K.intersect_count_ref(a, b, bounds, lbounds).sum())
     args = (a, b, bounds, lbounds)
-    t = {name: (cuda_ms(lambda f=getattr(K, name): f(*args)),
+    t = {name: (kernel_times(lambda f=getattr(K, name): f(*args)),
                 cuda_ms(lambda f=getattr(K, name + "_ref"): f(*args)))
          for name in ("intersect_count", "intersect_expand", "intersect_mark")}
     a_live = _window_keys(a, bounds, lbounds)
     live = a_live + _window_keys(b, bounds, lbounds)
-    for name, (ms, plain_ms) in t.items():
+    for name, (times, plain_ms) in t.items():
         out_bytes = (B * 4 if name != "intersect_mark" else 0) \
             + (B * cap_a * 4 if name != "intersect_count" else 0)
         bound_ms, by = _bound(B, cap_b, live, a_live, 1, out_bytes)
         print(f"[parity] {name} B={B} caps=({cap_a},{cap_b}) equal bit for bit; "
-              f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+              f"{_times_text(times)}, {plain_ms:.4f} ms plain, bound "
               f"{bound_ms:.4f} ms ({live} window keys); hits {hits}", flush=True)
         if (B, cap_a, cap_b) == TIMED_SHAPE:
-            report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            report[name].update(**times, plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=by, library_ms=None)
 
 
@@ -407,17 +478,17 @@ def _parity_multi(K, report, gen, B, cap_a, k, cap_b):
     pol = (1,) * (k - 1) + (0,)
     bs = bs_all[:k].contiguous()
     args = (a, bs, pol, bounds, lbounds, excl)
-    ms = cuda_ms(lambda: K.intersect_multi(*args))
+    times = kernel_times(lambda: K.intersect_multi(*args))
     plain_ms = cuda_ms(lambda: K.intersect_multi_ref(*args))
     a_live = _window_keys(a, bounds, lbounds)
     live = a_live + _window_keys(bs, bounds, lbounds)
     bound_ms, by = _bound(B, cap_b, live, a_live, k, B * 4 + B * cap_a * 4,
                           extra_in=excl.numel())
     print(f"[parity] intersect_multi B={B} cap_a={cap_a} k={k} cap_b={cap_b} "
-          f"pol={pol}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+          f"pol={pol}: {_times_text(times)}, {plain_ms:.4f} ms plain, bound "
           f"{bound_ms:.4f} ms ({live} window keys)", flush=True)
     if (B, cap_a, k, cap_b) == MULTI_TIMED:
-        report["intersect_multi"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        report["intersect_multi"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms,
                                          bound_by=by, library_ms=None)
 
 
@@ -485,7 +556,7 @@ def _parity_agg(K, report, gen, B, cap_a, k, cap_b):
           f"values in [0.5, 2) at pol={pol}: sums within rtol 1e-6, the rest bit "
           f"for bit", flush=True)
     args = (a, bs, pol, av, bv, sc, "sum", bounds, lbounds, excl)
-    ms = cuda_ms(lambda: K.intersect_multi_agg(*args))
+    times = kernel_times(lambda: K.intersect_multi_agg(*args))
     plain_ms = cuda_ms(lambda: K.intersect_multi_agg_ref(*args))
     a_live = _window_keys(a, bounds, lbounds)
     ref_live = _window_keys(bs, bounds, lbounds)
@@ -495,11 +566,182 @@ def _parity_agg(K, report, gen, B, cap_a, k, cap_b):
     bound_ms, by = _bound(B, cap_b, a_live + ref_live, a_live, k, B * cap_a * 4 + B * 8,
                           extra_in=a_live + inter_live + B + excl.numel())
     print(f"[parity] intersect_multi_agg B={B} cap_a={cap_a} k={k} cap_b={cap_b} "
-          f"pol={pol} op=sum: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+          f"pol={pol} op=sum: {_times_text(times)}, {plain_ms:.4f} ms plain, bound "
           f"{bound_ms:.4f} ms", flush=True)
     if (B, cap_a, k, cap_b) == MULTI_TIMED:
-        report["intersect_multi_agg"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        report["intersect_multi_agg"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms,
                                              bound_by=by, library_ms=None)
+
+
+def csr_of(stacks, value_stacks=()):
+    """One CSR whose vertices hold the live keys of the given (B, cap) row
+    matrices in turn (vertex j * B + i is row i of stack j), and the value
+    planes beside them, one per list of value matrices in ``value_stacks``;
+    SENTINEL / 0.0-padded past the last edge. -> (indptr, indices, [values],
+    [ids of each stack])."""
+    live = [x != SENTINEL for x in stacks]
+    lens = torch.cat([m.sum(dim=1) for m in live])
+    indptr = torch.zeros(lens.numel() + 1, dtype=torch.int32, device=DEVICE)
+    indptr[1:] = torch.cumsum(lens, 0)
+    pad = torch.full((128,), SENTINEL, dtype=torch.int32, device=DEVICE)
+    indices = torch.cat([x[m] for x, m in zip(stacks, live)] + [pad])
+    values = [torch.cat([v[m] for v, m in zip(vs, live)] + [torch.zeros(128, device=DEVICE)])
+              for vs in value_stacks]
+    B = stacks[0].shape[0]
+    ids = [torch.arange(j * B, (j + 1) * B, dtype=torch.int32, device=DEVICE)
+           for j in range(len(stacks))]
+    return indptr, indices, values, ids
+
+
+def _parity_count_csr(K, report, gen, B, cap_a, cap_b, cut):
+    """The count leaf's CSR form at one shape: A and B from the CSR, and A
+    padded (a carried base) with B from the CSR, each equal bit for bit to
+    the plain version and to the padded form on the rows cut at the caps;
+    one launch a call; timed at TIMED_SHAPE."""
+    span = 2 * cap_b
+    a, b = sorted_rows(gen, B, cap_a, span), sorted_rows(gen, B, cap_b, span)
+    bounds, lbounds = bound_vectors(gen, B, span)
+    indptr, indices, _, (va, vb) = csr_of([a, b])
+    ca, cb = cap_a // cut, cap_b // cut
+    a_cut, b_cut = a[:, :ca].contiguous(), b[:, :cb].contiguous()
+    for bd, lbd in ((bounds, lbounds), (None, None)):
+        n0 = K.intersect_count.launches
+        got = K.intersect_count_csr(indptr, indices, vb, cb, va=va, cap_a=ca, bounds=bd,
+                                    lbounds=lbd)
+        got_pad = K.intersect_count_csr(indptr, indices, vb, cb, a=a_cut, bounds=bd,
+                                        lbounds=lbd)
+        launched = K.intersect_count.launches - n0
+        want = K.intersect_count_csr_ref(indptr, indices, vb, cb, va=va, cap_a=ca,
+                                         bounds=bd, lbounds=lbd)
+        want_pad = K.intersect_count_ref(a_cut, b_cut, bd, lbd)
+        torch.cuda.synchronize()
+        _record(report, "intersect_count", max((got - want).abs().max().item(),
+                                               (got_pad - want).abs().max().item()))
+        if not (torch.equal(got, want) and torch.equal(got_pad, want)
+                and torch.equal(want, want_pad)) or launched != 2:
+            raise SystemExit(f"[csr] MISMATCH intersect_count_csr B={B} caps=({ca},{cb}) "
+                             f"bounds={'set' if bd is not None else 'None'}, {launched} "
+                             "launches for 2 calls")
+    deg = indptr[1:] - indptr[:-1]
+    print(f"[csr] intersect_count_csr B={B} caps=({ca},{cb}) from rows of ({cap_a},{cap_b}): "
+          f"equal bit for bit (CSR and padded A); {int((deg > cb).sum())} rows cut, "
+          f"{int((deg == 0).sum())} empty, {int((indptr[:-1] % 4 != 0).sum())} starts "
+          f"off 16 bytes, {int((bounds == 0).sum())} bound-0 rows", flush=True)
+    if (B, cap_a, cap_b) != TIMED_SHAPE or cut != 1:
+        return
+    args = (indptr, indices, vb, cap_b)
+    kw = dict(va=va, cap_a=cap_a, bounds=bounds, lbounds=lbounds)
+    times = kernel_times(lambda: K.intersect_count_csr(*args, **kw))
+    plain_ms = cuda_ms(lambda: K.intersect_count_csr_ref(*args, **kw))
+    a_live = _window_keys(a, bounds, lbounds)
+    bound_ms, _ = _bound(B, cap_b, a_live + _window_keys(b, bounds, lbounds), a_live, 1,
+                         B * 4)
+    print(f"[csr] intersect_count_csr B={B} caps=({cap_a},{cap_b}): {_times_text(times)}, "
+          f"{plain_ms:.4f} ms plain (padded_rows gathers + count), bound {bound_ms:.4f} ms",
+          flush=True)
+    report["intersect_count"].update({f"csr_{name}": v for name, v in times.items()},
+                                     csr_plain_ms=plain_ms, csr_bound_ms=bound_ms)
+
+
+def _parity_agg_csr(K, report, gen, B, cap_a, k, cap_b, cut):
+    """The aggregate leaf's CSR form (no mark) at one shape, over the
+    polarities of at most k refs, every op, with and without bounds and
+    excludes, and three bases (CSR rows with their values, padded rows with
+    1.0, padded rows with a_vals): dyadic values bit for bit against the
+    plain version; values in [0.5, 2) with counts, max and min bit for bit
+    and sums within rtol 1e-6; timed with a CSR base at MULTI_TIMED and at
+    the weighted triangle leaf's shape."""
+    span = 2 * cap_b
+    a = sorted_rows(gen, B, cap_a, span)
+    bs = [sorted_rows(gen, B, cap_b, span) for _ in range(k)]
+    dy = [values_like(gen, x) for x in (a, *bs)]
+    nd = [values_like(gen, x, dyadic=False) for x in (a, *bs)]
+    indptr, indices, (vals, nvals), ids = csr_of([a, *bs], [dy, nd])
+    va, vbs_all = ids[0], torch.stack(ids[1:])
+    bounds, lbounds = bound_vectors(gen, B, span)
+    excl = _excludes(gen, a)
+    sc, nsc = values_like(gen, torch.zeros_like(bounds)), values_like(
+        gen, torch.zeros_like(bounds), dyadic=False)
+    ca, cb = cap_a // cut, cap_b // cut
+    a_cut, av_cut = a[:, :ca].contiguous(), dy[0][:, :ca].contiguous()
+    bases = {"csr": dict(va=va, cap_a=ca), "padded 1.0": dict(a=a_cut),
+             "padded a_vals": dict(a=a_cut, a_vals=av_cut)}
+    for pol in (p for p in MULTI_POLS if len(p) <= k):
+        vbs = vbs_all[: len(pol)].contiguous()
+        caps = tuple(cb if r % 2 == 0 else max(1, cb // 2) for r in range(len(pol)))
+        for bd, lbd, ex in ((bounds, lbounds, excl), (None, None, None)):
+            for op in AGG_OPS:
+                for base, kw in bases.items():
+                    args = (indptr, indices, vals, vbs, caps, pol, sc, op)
+                    n0 = K.intersect_multi_agg.launches
+                    got = K.intersect_multi_agg_csr(*args, **kw, bounds=bd, lbounds=lbd,
+                                                    excludes=ex)
+                    launched = K.intersect_multi_agg.launches - n0
+                    want = K.intersect_multi_agg_csr_ref(*args, **kw, bounds=bd,
+                                                         lbounds=lbd, excludes=ex)
+                    torch.cuda.synchronize()
+                    _record(report, "intersect_multi_agg", _max_err(got, want))
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)) or launched != 1:
+                        raise SystemExit(
+                            f"[csr] MISMATCH intersect_multi_agg_csr B={B} cap_a={ca} "
+                            f"caps={caps} pol={pol} op={op} base {base} bounds="
+                            f"{'set' if bd is not None else 'None'}: {_max_err(got, want)}, "
+                            f"{launched} launches")
+    pol = (1,) * (k - 1) + (0,)
+    vbs = vbs_all[:k].contiguous()
+    caps = (cb,) * k
+    for op in AGG_OPS:
+        args = (indptr, indices, nvals, vbs, caps, pol, nsc, op)
+        kw = dict(va=va, cap_a=ca, bounds=bounds, lbounds=lbounds, excludes=excl)
+        got = K.intersect_multi_agg_csr(*args, **kw)
+        want = K.intersect_multi_agg_csr_ref(*args, **kw)
+        torch.cuda.synchronize()
+        _record(report, "intersect_multi_agg", _max_err(got, want))
+        vals_ok = torch.allclose(got[1], want[1], rtol=1e-6, atol=0) if op == "sum" \
+            else torch.equal(got[1], want[1])
+        if not (torch.equal(got[0], want[0]) and vals_ok):
+            raise SystemExit(f"[csr] MISMATCH intersect_multi_agg_csr non-dyadic B={B} "
+                             f"cap_a={ca} cap_b={cb} op={op}: {_max_err(got, want)}")
+    print(f"[csr] intersect_multi_agg_csr B={B} cap_a={ca} k={k} cap_b={cb} (odd refs "
+          f"{max(1, cb // 2)}) from rows of ({cap_a},{cap_b}): pols "
+          f"{[p for p in MULTI_POLS if len(p) <= k]} x {list(AGG_OPS)} x {list(bases)}: "
+          f"dyadic values equal bit for bit; values in [0.5, 2): sums within rtol 1e-6, "
+          f"the rest bit for bit", flush=True)
+    if (B, cap_a, k, cap_b) not in (MULTI_TIMED, CSR_AGG_TRIANGLE) or cut != 1:
+        return
+    # MULTI_TIMED: k - 1 INTER refs then a SUB; the triangle leaf: its INTER ref
+    n_int = k if (B, cap_a, k, cap_b) == CSR_AGG_TRIANGLE else k - 1
+    pol = (1,) * n_int + (0,) * (k - n_int)
+    args = (indptr, indices, vals, vbs, caps, pol, sc, "sum")
+    kw = dict(va=va, cap_a=cap_a, bounds=bounds, lbounds=lbounds, excludes=excl)
+    times = kernel_times(lambda: K.intersect_multi_agg_csr(*args, **kw))
+    plain_ms = cuda_ms(lambda: K.intersect_multi_agg_csr_ref(*args, **kw))
+    a_live = _window_keys(a, bounds, lbounds)
+    stack = torch.stack(bs)
+    ref_live = _window_keys(stack, bounds, lbounds)
+    inter_live = _window_keys(stack[:n_int], bounds, lbounds)
+    # keys of A and the refs, values of A and the INTER refs, the scale and
+    # the excludes in; counts and vals out: no mark
+    bound_ms, _ = _bound(B, cap_b, a_live + ref_live, a_live, k, B * 8,
+                         extra_in=a_live + inter_live + B + excl.numel())
+    print(f"[csr] intersect_multi_agg_csr B={B} cap_a={cap_a} k={k} cap_b={cap_b} "
+          f"pol={pol} op=sum, no mark: {_times_text(times)}, {plain_ms:.4f} ms plain, "
+          f"bound {bound_ms:.4f} ms", flush=True)
+    if (B, cap_a, k, cap_b) != MULTI_TIMED:
+        return
+    report["intersect_multi_agg"].update({f"csr_{name}": v for name, v in times.items()},
+                                         csr_plain_ms=plain_ms, csr_bound_ms=bound_ms)
+
+
+def phase_csr(report: dict) -> None:
+    """The count and aggregate leaves' CSR-operand forms against their plain
+    versions, and their times at the timed shapes."""
+    from repro_torch.kernels import intersect as K
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    for shape in CSR_SHAPES:
+        _parity_count_csr(K, report, gen, *shape)
+    for shape in CSR_AGG_SHAPES:
+        _parity_agg_csr(K, report, gen, *shape)
 
 
 def _vinter_bound(ak, bk, rows: int) -> tuple[float, str]:
@@ -568,7 +810,7 @@ def _time_vinter_on_spmm_block(SV, report):
     nr, nc = len(rows), len(cols)
     args = (ak.repeat_interleave(nc, 0), av.repeat_interleave(nc, 0), bk.repeat(nr, 1),
             bv.repeat(nr, 1))
-    ms = cuda_ms(lambda: SV.vinter(*args), reps=50)
+    times = kernel_times(lambda: SV.vinter(*args), reps=50)
     plain_ms = cuda_ms(lambda: SV.vinter_ref(*args), reps=50)
     bound_ms, by = _vinter_bound(args[0], args[2], nr * nc)
     a_sp = torch.from_numpy(a_d[rows]).to(DEVICE).to_sparse()
@@ -581,10 +823,10 @@ def _time_vinter_on_spmm_block(SV, report):
                          f"{(got - block).abs().max().item()}")
     library_ms = cuda_ms(lambda: torch.sparse.mm(a_sp, b_sp), reps=50)
     print(f"[parity] vinter email-core spmm block B={nr * nc} caps=({ak.shape[1]},"
-          f"{bk.shape[1]}) mac: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+          f"{bk.shape[1]}) mac: {_times_text(times)}, {plain_ms:.4f} ms plain, "
           f"{library_ms:.4f} ms torch.sparse.mm of the block, bound {bound_ms:.4f} ms",
           flush=True)
-    report["vinter"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+    report["vinter"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                             library_ms=library_ms)
 
 
@@ -618,7 +860,7 @@ def _parity_compact(CP, report, gen, B, cap, out_cap, densities):
               f"out_cap", flush=True)
         if (B, cap, out_cap, density) != COMPACT_TIMED:
             continue
-        ms = cuda_ms(lambda: CP.compact_rows(a, keep, out_cap))
+        times = kernel_times(lambda: CP.compact_rows(a, keep, out_cap))
         plain_ms = cuda_ms(lambda: CP.compact_rows_ref(a, keep, out_cap))
 
         def masked_sort():
@@ -632,9 +874,9 @@ def _parity_compact(CP, report, gen, B, cap, out_cap, densities):
         # live keys and their keep flags read, rows and counts written
         bound_ms, by = _bytes_bound(live * 5 + B * out_cap * 4 + B * 4)
         print(f"[parity] compact_rows B={B} cap={cap} out_cap={out_cap} density "
-              f"{density}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {library_ms:.4f} "
+              f"{density}: {_times_text(times)}, {plain_ms:.4f} ms plain, {library_ms:.4f} "
               f"ms masked sort (torch.sort), bound {bound_ms:.4f} ms", flush=True)
-        report["compact_rows"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        report["compact_rows"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms,
                                       bound_by=by, library_ms=library_ms)
 
 
@@ -649,14 +891,15 @@ def _parity_bitmap(BM, report, gen, B, words):
     _record(report, "bitmap_and_count", (got - want).abs().max().item())
     if not torch.equal(got, want):
         raise SystemExit(f"[parity] MISMATCH bitmap_and_count B={B} W={words}")
-    ms = cuda_ms(lambda: BM.bitmap_and_count(a, b))
+    times = kernel_times(lambda: BM.bitmap_and_count(a, b))
     plain_ms = cuda_ms(lambda: BM.bitmap_and_count_ref(a, b))
     bound_ms, by = _bytes_bound(2 * B * words * 4 + B * 4)
-    print(f"[parity] bitmap_and_count B={B} W={words}: equal bit for bit; {ms:.4f} ms "
-          f"kernel, {plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms", flush=True)
+    print(f"[parity] bitmap_and_count B={B} W={words}: equal bit for bit; "
+          f"{_times_text(times)}, {plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms",
+          flush=True)
     if (B, words) == BITMAP_TIMED:
         # PyTorch has no popcount: no one call computes this function
-        report["bitmap_and_count"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        report["bitmap_and_count"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms,
                                           bound_by=by, library_ms=None)
 
 
@@ -739,6 +982,30 @@ def _mine(miner, kernels, label: str, query: str, want: int):
     return got, launched, st
 
 
+def count_gathers(run):
+    """(run(), calls of the engine's padded_rows and padded_value_rows during
+    it): the leaves that read the CSR gather no padded rows."""
+    from repro_torch.mining import engine
+    calls = dict.fromkeys(("padded_rows", "padded_value_rows"), 0)
+    saved = {name: getattr(engine, name) for name in calls}
+
+    def counted(name):
+        def gather(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return gather
+    for name in calls:
+        setattr(engine, name, counted(name))
+    out = run()
+    for name, fn in saved.items():
+        setattr(engine, name, fn)
+    return out, calls
+
+
+# queries whose leaves read every row from the CSR: no padded gathers
+GATHER_FREE = ("triangle",)
+
+
 def phase_main_path(graphs: dict):
     """Drive the port's Miner; every count must equal the JAX package's.
     Returns (per-query results, launches per count-path kernel)."""
@@ -750,8 +1017,13 @@ def phase_main_path(graphs: dict):
     for name, scale, queries in MAIN_PATH:
         miner = Miner(graphs[name, scale], device=DEVICE)
         for query, want in queries:
-            counts[name, scale, query] = _mine(miner, kernels, f"{name} x{scale}",
-                                               query, want)
+            counts[name, scale, query], gathers = count_gathers(
+                lambda: _mine(miner, kernels, f"{name} x{scale}", query, want))
+            if query in GATHER_FREE:
+                print(f"[main] {name} x{scale} {query}: padded-row gathers {gathers}",
+                      flush=True)
+                if any(gathers.values()):
+                    raise SystemExit(f"[main] {name} {query}: the leaf gathered padded rows")
     # mico's induced three-chains, independently: Σ_v C(d_v, 2) − 3·triangles
     d = graphs["mico", 1.0].degrees.cpu().numpy().astype("int64")
     wedges = int((d * (d - 1) // 2).sum())
@@ -810,9 +1082,12 @@ def phase_weighted(graphs: dict, counts: dict) -> dict:
             st0 = dict(miner.stats["runner"])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            got = miner.aggregate(query, op)
+            got, gathers = count_gathers(lambda: miner.aggregate(query, op))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+            if query in GATHER_FREE and any(gathers.values()):
+                raise SystemExit(f"[weighted] {name} {query} {op}: the leaf gathered "
+                                 f"padded rows {gathers}")
             calls, launched = lanes.value - v0, agg.launches - n0
             disp = miner.stats["runner"]["level_kernel_dispatches"] - st0["level_kernel_dispatches"]
             _, _, twin = counts[name, scale, TWIN.get((name, query), query)]
@@ -820,6 +1095,7 @@ def phase_weighted(graphs: dict, counts: dict) -> dict:
             rule = "bit for bit" if exact else "rtol 1e-6"
             print(f"[weighted] {name} x{scale} {query} {op} = {got!r} (JAX package: "
                   f"{want!r}, {rule}) {dt:.3f}s wall (count {twin['wall']:.3f}s); "
+                  f"padded gathers {sum(gathers.values())}; "
                   f"multi_agg launches {launched} over {calls} leaf calls; feed_chunks "
                   f"{chunks.value - c0} (count {twin['feed_chunks']}) dispatches {disp} "
                   f"(count {twin['level_kernel_dispatches']})", flush=True)
@@ -1122,29 +1398,70 @@ def phase_profile(graphs: dict) -> None:
                  lambda q=query, o=op: wminer.aggregate(q, o))
 
 
-def main() -> int:
+PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
+          "host", "bitmap", "profile")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the directory that holds repro_torch (default: src/ beside "
+                         "this file); another checkout's, to measure it with this script")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES) + "; the "
+                         "result lines are printed only when every phase ran")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES) or ("weighted" in phases and "main" not in phases):
+        ap.error(f"--phases {args.phases}: pick from {PHASES} (weighted needs main)")
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
+    if not (args.src / "repro_torch").is_dir():
+        print(f"chip_smoke: no repro_torch under {args.src}", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     t0 = time.perf_counter()
-    phase_card()
-    phase_build()
-    report = phase_parity()
-    graphs = build_graphs()
-    counts, launches = phase_main_path(graphs)
-    launches.update(phase_weighted(graphs, counts))
-    launches.update(phase_sparse())
-    phase_forest(graphs)
-    launches.update(phase_host(graphs))
-    launches.update(phase_bitmap(graphs))
-    phase_profile(graphs)
+    run = set(phases)
+    report = {name: {"max_abs_err": 0} for name in KERNELS}
+    launches, graphs, counts = {}, {}, {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"[phase] {name}: {time.perf_counter() - t:.1f}s", flush=True)
+        return out
+    if "card" in run:
+        timed("card", phase_card)
+    if "build" in run:
+        timed("build", phase_build)
+    if "parity" in run:
+        report = timed("parity", phase_parity)
+    if "csr" in run:
+        timed("csr", phase_csr, report)
+    if run & {"main", "forest", "host", "bitmap", "profile"}:
+        graphs = timed("graphs", build_graphs)
+    if "main" in run:
+        counts, launches = timed("main", phase_main_path, graphs)
+    if "weighted" in run:
+        launches.update(timed("weighted", phase_weighted, graphs, counts))
+    if "sparse" in run:
+        launches.update(timed("sparse", phase_sparse))
+    if "forest" in run:
+        timed("forest", phase_forest, graphs)
+    if "host" in run:
+        launches.update(timed("host", phase_host, graphs))
+    if "bitmap" in run:
+        launches.update(timed("bitmap", phase_bitmap, graphs))
+    if "profile" in run:
+        timed("profile", phase_profile, graphs)
+    print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
+    if run != set(PHASES):
+        print(json.dumps({"phases": phases, "times": report}), flush=True)
+        return 0
     rows = [{"name": name, **KERNELS[name], "launches": launches[name],
              "parity": True, **report[name]} for name in KERNELS]
-    print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -171,6 +171,32 @@ def with_edge_values(g: CSRGraph, values: np.ndarray) -> CSRGraph:
     return dataclasses.replace(g, edge_values=torch.from_numpy(vals_pad).to(g.device))
 
 
+def _gather_rows(indptr: torch.Tensor, src: torch.Tensor, vs: torch.Tensor,
+                 cap: int, pad):
+    """(rows, lengths): row i holds ``src[indptr[v] : indptr[v] + cap]`` for
+    v = vs[i], ``pad`` past the vertex's degree. Window indices are clamped
+    into ``src``, so the window past the last vertex stays in bounds."""
+    vs = vs.long()
+    starts = indptr[vs].long()
+    lens = indptr[vs + 1].long() - starts
+    col = torch.arange(cap, dtype=torch.int64, device=vs.device)
+    idx = (starts[:, None] + col[None, :]).clamp_(0, src.shape[0] - 1)
+    return torch.where(col[None, :] < lens[:, None], src[idx], pad), lens
+
+
+def csr_rows(indptr: torch.Tensor, indices: torch.Tensor, vs: torch.Tensor,
+             cap: int, values: torch.Tensor | None = None) -> torch.Tensor:
+    """Gather the CSR rows of a vertex batch into a (B, cap) matrix.
+
+    Row i holds ``indices[indptr[v] : indptr[v] + min(deg(v), cap)]`` for
+    v = vs[i], SENTINEL-padded — or, given ``values`` (aligned with
+    ``indices``), the f32 values beside those keys, 0.0-padded. The plain
+    version of the kernels' CSR row operand (``kernels.intersect``)."""
+    if values is None:
+        return _gather_rows(indptr, indices, vs, cap, SENTINEL)[0]
+    return _gather_rows(indptr, values, vs, cap, 0.0)[0]
+
+
 def padded_rows(g: CSRGraph, vs: torch.Tensor, cap: int):
     """Gather the neighbour lists of a vertex batch into a (B, cap) matrix.
 
@@ -178,13 +204,7 @@ def padded_rows(g: CSRGraph, vs: torch.Tensor, cap: int):
     int32 on the graph's device. Window indices are clamped into
     ``indices``, so the window past the last vertex reads SENTINEL padding.
     """
-    vs = vs.long()
-    starts = g.indptr[vs].long()
-    lens = g.indptr[vs + 1].long() - starts
-    col = torch.arange(cap, dtype=torch.int64, device=vs.device)
-    idx = (starts[:, None] + col[None, :]).clamp_(0, g.indices.shape[0] - 1)
-    rows = torch.where(col[None, :] < lens[:, None], g.indices[idx],
-                       SENTINEL)
+    rows, lens = _gather_rows(g.indptr, g.indices, vs, cap, SENTINEL)
     return rows, torch.clamp(lens, max=cap).to(torch.int32)
 
 
@@ -193,12 +213,7 @@ def padded_value_rows(g: CSRGraph, vs: torch.Tensor, cap: int) -> torch.Tensor:
     (B, cap) f32 matrix, 0.0 where the key row holds SENTINEL padding."""
     if g.edge_values is None:
         raise ValueError("graph has no edge_values (see with_edge_values)")
-    vs = vs.long()
-    starts = g.indptr[vs].long()
-    lens = g.indptr[vs + 1].long() - starts
-    col = torch.arange(cap, dtype=torch.int64, device=vs.device)
-    idx = (starts[:, None] + col[None, :]).clamp_(0, g.edge_values.shape[0] - 1)
-    return torch.where(col[None, :] < lens[:, None], g.edge_values[idx], 0.0)
+    return _gather_rows(g.indptr, g.edge_values, vs, cap, 0.0)[0]
 
 
 def degree_buckets(g: CSRGraph, base: int = LANE) -> list[tuple[int, np.ndarray]]:

@@ -7,7 +7,9 @@ named by the SHA-256 of the source, the headers beside it (``*.cuh``) and
 the flags, so an edited source is rebuilt and an unchanged one is loaded as
 it is. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills)
 is kept beside each library. ``launch`` calls one kernel's C entry point on
-a device's current stream.
+a device's current stream; the entry point's ctypes function is resolved and
+typed once, and the stream is read without a device switch when the device
+is already current (the host cost of a call is most of a small launch).
 
 Nothing here runs at import: the tests import every module on machines
 with no CUDA toolkit.
@@ -91,17 +93,34 @@ def load(name: str) -> KernelLibrary:
     return lib
 
 
+_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def _function(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """``symbol`` of ``csrc/<name>.cu``, its argument types set: resolved
+    once per process, so a launch looks it up in a dict."""
+    fn = getattr(load(name).lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _FUNCTIONS[name, symbol] = fn
+    return fn
+
+
 def launch(name: str, symbol: str, device: torch.device, tensors, ints) -> None:
     """Launch ``symbol`` of ``csrc/<name>.cu`` on ``device``'s current stream:
     ``symbol(*tensor pointers (None -> NULL), *ints, stream)``; raise on the
-    CUDA error code it returns."""
-    fn = getattr(load(name).lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * len(tensors) \
-            + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints, stream)
+    CUDA error code it returns. A device other than the current one is made
+    current for the launch (the kernel launches on the current device)."""
+    fn = _FUNCTIONS.get((name, symbol)) or _function(name, symbol, len(tensors),
+                                                     len(ints))
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = fn(*ptrs, *ints, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*ptrs, *ints, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")

@@ -1,8 +1,11 @@
-// Search helpers shared by the kernels of this directory: sorted int32
-// rows padded with SENTINEL = 2^31-1 (see intersect.cu for the contract).
+// Row helpers shared by the kernels of this directory: sorted int32 rows,
+// either padded with SENTINEL = 2^31-1 to a fixed capacity or read straight
+// from a CSR neighbour list (see intersect.cu for the contract), searched,
+// staged into shared memory by asynchronous copies and intersected.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -44,6 +47,170 @@ __device__ __forceinline__ bool contains(const int* __restrict__ row, int n,
                                          int key) {
   const int p = lower_bound(row, n, key);
   return p < n && row[p] == key;
+}
+
+// ---------------------------------------------------------------------------
+// Row operands. A row is a (pointer, length) pair, with the values beside its
+// keys when the caller has any (vals == nullptr: every value is 1.0). A row
+// source maps (operand r, batch row i) to a row:
+//   PaddedRows  row (r, i) of a (k, B, cap) SENTINEL-padded stack: cap keys,
+//               the padding inside them;
+//   CsrRows     the neighbours of vertex ids[r * B + i] in a CSR, cut at the
+//               operand's cap: indices[indptr[v] : indptr[v] + min(deg, cap)],
+//               exactly the live part of graph/csr.py:padded_rows.
+// kPadded tells the window search whether SENTINEL can sit inside a row.
+constexpr int kMaxRefs = 8;
+
+struct Row {
+  const int* keys;
+  const float* vals;
+  int n;
+};
+
+struct PaddedRows {
+  static constexpr bool kPadded = true;
+  const int* keys;
+  const float* vals;
+  int rows, cap;
+  __device__ __forceinline__ Row row(int r, int i) const {
+    const size_t at = (static_cast<size_t>(r) * rows + i) * cap;
+    return {keys + at, vals ? vals + at : nullptr, cap};
+  }
+};
+
+struct CsrRows {
+  static constexpr bool kPadded = false;
+  const int* indptr;
+  const int* indices;
+  const float* values;
+  const int* ids;
+  int rows;
+  int caps[kMaxRefs];
+  __device__ __forceinline__ Row row(int r, int i) const {
+    const int v = ids[static_cast<size_t>(r) * rows + i];
+    const int start = indptr[v];
+    const int deg = indptr[v + 1] - start;
+    return {indices + start, values ? values + start : nullptr,
+            deg < caps[r] ? deg : caps[r]};
+  }
+};
+
+// [lo, hi) of keys[0, n)'s keys inside (lb, ub), by the 32 lanes of one warp
+// (keys in device or shared memory). Keys are >= 0, so lb < 0 needs no
+// search; a CSR row holds no SENTINEL, so ub == SENTINEL ends it at n.
+template <bool kPadded>
+__device__ __forceinline__ int2 warp_window(const int* keys, int n, int lb, int ub) {
+  const int lo = lb < 0 ? 0 : warp_lower_bound(keys, 0, n, lb + 1);
+  const int hi = (!kPadded && ub == kSentinel) ? n : warp_lower_bound(keys, lo, n, ub);
+  return make_int2(lo, hi);
+}
+
+// One end of the window: the first key >= lb + 1 (lower end) or >= ub
+// (upper end), each searched by its own warp so that the two ends of a
+// row's window cost one search's latency.
+template <bool kPadded>
+__device__ __forceinline__ int warp_window_end(const int* keys, int n, int lb, int ub,
+                                               bool upper) {
+  if (!upper) return lb < 0 ? 0 : warp_lower_bound(keys, 0, n, lb + 1);
+  return (!kPadded && ub == kSentinel) ? n : warp_lower_bound(keys, 0, n, ub);
+}
+
+// Asynchronous copy (cp.async) of n 4-byte words from device memory into
+// shared memory. `slice` is 16-byte aligned with room for n + 3 words; word
+// 0 lands at slice + (src's word offset mod 4), so that the body moves in
+// 16-byte transfers whatever 4-byte boundary src starts on, and the head
+// and tail move a word at a time. The `nlanes` threads of rank `lane` each
+// issue their share; returns where word 0 landed. Each issuing thread waits
+// with async_wait_all before a barrier makes the words visible to others.
+template <typename T>
+__device__ __forceinline__ T* stage_async(T* slice, const T* src, int n,
+                                          int lane, int nlanes) {
+  static_assert(sizeof(T) == 4, "4-byte words");
+  const int shift = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  T* dst = slice + shift;
+  int head = (4 - shift) & 3;
+  head = head < n ? head : n;
+  const int body = (n - head) >> 2;
+  const int tail = head + 4 * body;
+  for (int w = lane; w < head; w += nlanes) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + w));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + w));
+  }
+  for (int c = lane; c < body; c += nlanes) {
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + head + 4 * c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src + head + 4 * c));
+  }
+  for (int w = tail + lane; w < n; w += nlanes) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + w));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + w));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  return dst;
+}
+
+__device__ __forceinline__ void async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Merge path: how many of a's keys come among the first d of the merge of
+// a[0, na) and b[0, nb), a's key first on a tie.
+__device__ __forceinline__ int merge_path(const int* __restrict__ a, int na,
+                                          const int* __restrict__ b, int nb,
+                                          int d) {
+  int lo = d > nb ? d - nb : 0;
+  int hi = d < na ? d : na;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= b[d - 1 - mid]) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int ilog2_ceil(int n) {
+  return n > 1 ? 32 - __clz(n - 1) : 0;
+}
+
+// |a[0, na) ∩ b[0, nb)| of two sorted sets of keys below SENTINEL, this
+// thread's share of a team of `nlanes` threads (the caller sums the team).
+// Per-key binary search into b when a is much the shorter (each thread
+// takes every nlanes-th key of a); else merge path: thread `lane` takes
+// the lane-th equal slice of the merge, finds its start with one binary
+// search on its diagonal, and walks its slice, counting a key of a when it
+// equals b's key at the cursor (a's key goes first on a tie, so each match
+// is counted once, by the thread that consumes it).
+__device__ __forceinline__ int team_intersect_count(const int* __restrict__ a, int na,
+                                                    const int* __restrict__ b, int nb,
+                                                    int lane, int nlanes) {
+  if (na == 0 || nb == 0) return 0;
+  const int total = na + nb;
+  const int per = (total + nlanes - 1) / nlanes;
+  const int search_cost = ((na + nlanes - 1) / nlanes) * (ilog2_ceil(nb) + 1);
+  const int merge_cost = per + ilog2_ceil(na < nb ? na : nb) + 1;
+  int hits = 0;
+  if (search_cost <= merge_cost) {
+    for (int s = lane; s < na; s += nlanes) hits += contains(b, nb, a[s]);
+    return hits;
+  }
+  const int d = lane * per;
+  if (d >= total) return 0;
+  int i = merge_path(a, na, b, nb, d);
+  int j = d - i;
+  const int steps = total - d < per ? total - d : per;
+  int ka = i < na ? a[i] : kSentinel;
+  int kb = j < nb ? b[j] : kSentinel;
+  for (int t = 0; t < steps; ++t) {   // i + j < total: one side is live
+    if (ka <= kb) {
+      hits += ka == kb;
+      ++i;
+      ka = i < na ? a[i] : kSentinel;
+    } else {
+      ++j;
+      kb = j < nb ? b[j] : kSentinel;
+    }
+  }
+  return hits;
 }
 
 }  // namespace

@@ -12,6 +12,16 @@ kernels of ``repro/kernels/intersect.py`` on the mining main path:
   ``intersect_multi_agg`` <- ``intersect_multi_agg_pallas`` -> (mark, counts,
                                                            vals (B,) f32)
 
+Two more entries serve the engine's leaves with rows read straight from
+the graph's CSR (no gathered (B, cap) matrix in device memory), on the
+same device templates and launch counters as their padded-row forms:
+
+  ``intersect_count_csr``      the count leaf: B's rows (and a fresh base's)
+                               given as vertex ids            -> counts (B,)
+  ``intersect_multi_agg_csr``  the aggregate leaf: the k references (and a
+                               fresh base) as vertex ids, their values from
+                               the CSR's value plane; no mark -> (counts, vals)
+
 Contract of the first three: ``a`` (B, cap_a) and ``b`` (B, cap_b) are
 int32 rows, each a sorted set padded with SENTINEL, caps multiples of 128.
 Slot s of row i counts iff ``a[i,s] != SENTINEL``,
@@ -31,7 +41,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.batch import AGG_OPS, inter_keep, level_agg, level_keep
-from repro_torch.core.stream import LANE
+from repro_torch.core.stream import LANE, SENTINEL
+from repro_torch.graph.csr import csr_rows
 
 from .build import launch
 
@@ -70,6 +81,38 @@ def intersect_multi_agg_ref(a, bs, pol, a_vals, b_vals, scale, op="sum",
     return keep.to(torch.int32), keep.sum(dim=1, dtype=torch.int32), vals
 
 
+def intersect_count_csr_ref(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
+                            bounds=None, lbounds=None) -> torch.Tensor:
+    """Plain torch version of ``intersect_count_csr``: the rows gathered as
+    ``graph.csr.padded_rows`` gathers them, then ``intersect_count_ref``."""
+    if a is None:
+        a = csr_rows(indptr, indices, va, cap_a)
+    return intersect_count_ref(a, csr_rows(indptr, indices, vb, cap_b), bounds, lbounds)
+
+
+def intersect_multi_agg_csr_ref(indptr, indices, edge_values, vbs, caps_b, pol, scale,
+                                op="sum", a=None, va=None, cap_a=None, a_vals=None,
+                                bounds=None, lbounds=None, excludes=None):
+    """Plain torch version of ``intersect_multi_agg_csr``: each reference's
+    keys and values gathered at its cap and SENTINEL / 0.0-padded to the
+    widest, A's likewise (or 1.0 for a padded ``a`` without ``a_vals``),
+    then ``intersect_multi_agg_ref`` without its mark -> (counts, vals)."""
+    capmax = max(caps_b)
+    pad = torch.nn.functional.pad
+    bs = torch.stack([pad(csr_rows(indptr, indices, vbs[r], c), (0, capmax - c),
+                          value=SENTINEL) for r, c in enumerate(caps_b)])
+    bv = torch.stack([pad(csr_rows(indptr, indices, vbs[r], c, edge_values),
+                          (0, capmax - c)) for r, c in enumerate(caps_b)])
+    if a is None:
+        a = csr_rows(indptr, indices, va, cap_a)
+        a_vals = csr_rows(indptr, indices, va, cap_a, edge_values)
+    elif a_vals is None:
+        a_vals = torch.ones(a.shape, dtype=torch.float32, device=a.device)
+    _, counts, vals = intersect_multi_agg_ref(a, bs, pol, a_vals, bv, scale, op, bounds,
+                                              lbounds, excludes)
+    return counts, vals
+
+
 def _check_rows(name: str, t: torch.Tensor, a: torch.Tensor, ndim: int = 2) -> None:
     if t.dtype != torch.int32 or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {ndim}-D int32 tensor, "
@@ -83,17 +126,62 @@ def _check_rows(name: str, t: torch.Tensor, a: torch.Tensor, ndim: int = 2) -> N
         raise ValueError(f"a has {a.shape[0]} rows, {name} {t.shape[-2]}")
 
 
-def _check_bounds(a: torch.Tensor, bounds, lbounds) -> None:
+def _check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this shape and type on
+    ``device`` (attribute reads only, no tensor ops)."""
+    if t.dtype != dtype or t.shape != shape or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {shape} {dtype} tensor on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_bounds(a: torch.Tensor, bounds, lbounds, rows: int | None = None) -> None:
+    """bounds / lbounds: None or (rows,) int32 on ``a``'s device (rows
+    defaults to a's: ``a`` is the base rows, or the CSR's indptr)."""
+    rows = a.shape[0] if rows is None else rows
     for name, t in (("bounds", bounds), ("lbounds", lbounds)):
-        if t is None:
-            continue
-        if t.dtype != torch.int32 or tuple(t.shape) != (a.shape[0],) \
-                or not t.is_contiguous() or t.device != a.device:
-            raise ValueError(f"{name} must be a contiguous ({a.shape[0]},) int32 "
-                             f"tensor on {a.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+        if t is not None:
+            _check_tensor(name, t, (rows,), torch.int32, a.device)
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no intersect kernel for device {a.device}")
+
+
+def _check_cap(name: str, cap) -> None:
+    if not isinstance(cap, int) or not 0 < cap < SENTINEL:
+        raise ValueError(f"{name} must be a positive int, got {cap!r}")
+
+
+def _check_csr(indptr, indices, values=None) -> None:
+    """The CSR operand: 1-D int32 indptr and indices (and f32 values aligned
+    with indices) on one device."""
+    if indptr.dim() != 1:
+        raise ValueError(f"indptr must be 1-D, got {tuple(indptr.shape)}")
+    _check_tensor("indptr", indptr, tuple(indptr.shape), torch.int32, indptr.device)
+    if indices.dim() != 1:
+        raise ValueError(f"indices must be 1-D, got {tuple(indices.shape)}")
+    _check_tensor("indices", indices, tuple(indices.shape), torch.int32, indptr.device)
+    if values is not None:
+        _check_tensor("edge_values", values, tuple(indices.shape), torch.float32,
+                      indptr.device)
+
+
+def _check_base(indptr, a, va, cap_a, rows: int) -> int:
+    """A is a padded (rows, cap_a) matrix ``a`` or CSR rows of ids ``va`` at
+    ``cap_a``: exactly one. Returns cap_a."""
+    if (a is None) == (va is None):
+        raise ValueError("give the base as exactly one of a (padded rows) and "
+                         "va (vertex ids)")
+    if a is not None:
+        _check_rows("a", a, a)
+        if a.shape[0] != rows or a.device != indptr.device:
+            raise ValueError(f"a must hold {rows} rows on {indptr.device}, got "
+                             f"{tuple(a.shape)} on {a.device}")
+        if cap_a is not None and cap_a != a.shape[1]:
+            raise ValueError(f"cap_a {cap_a} != a's capacity {a.shape[1]}")
+        return a.shape[1]
+    _check_tensor("va", va, (rows,), torch.int32, indptr.device)
+    _check_cap("cap_a", cap_a)
+    return cap_a
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, bounds, lbounds) -> None:
@@ -154,6 +242,39 @@ def intersect_count(a, b, bounds=None, lbounds=None) -> torch.Tensor:
 
 
 intersect_count.launches = 0
+
+
+def intersect_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
+                        bounds=None, lbounds=None) -> torch.Tensor:
+    """``intersect_count`` with rows read from a CSR (the count leaf).
+
+    B's row i is the neighbour list of ``vb[i]`` cut at ``cap_b``:
+    ``indices[indptr[v] : indptr[v] + min(deg(v), cap_b)]``, the keys
+    ``graph.csr.padded_rows`` gathers. A's row i is ``a[i]`` of a padded
+    (B, cap_a) matrix (a carried base) or, given ``va`` and ``cap_a``
+    instead, the neighbour list of ``va[i]`` cut at ``cap_a``. ``indptr``,
+    ``indices``, ``vb``, ``va`` int32; bounds as ``intersect_count``. Ids
+    must be vertices of the CSR (0 <= v < len(indptr) - 1): checking them
+    would cost a read of the device. Launches count in
+    ``intersect_count.launches``."""
+    _check_csr(indptr, indices)
+    if vb.dim() != 1:
+        raise ValueError(f"vb must be (B,), got {tuple(vb.shape)}")
+    _check_tensor("vb", vb, tuple(vb.shape), torch.int32, indptr.device)
+    _check_cap("cap_b", cap_b)
+    rows = vb.shape[0]
+    cap_a = _check_base(indptr, a, va, cap_a, rows)
+    _check_bounds(indptr, bounds, lbounds, rows)
+    if indptr.device.type == "cpu":
+        return intersect_count_csr_ref(indptr, indices, vb, cap_b, a, va, cap_a,
+                                       bounds, lbounds)
+    counts = torch.empty(rows, dtype=torch.int32, device=indptr.device)
+    if rows:
+        launch("intersect", "repro_intersect_count_csr", indptr.device,
+               (indptr, indices, a, va, vb, bounds, lbounds, counts),
+               (rows, cap_a, cap_b))
+        intersect_count.launches += 1
+    return counts
 
 
 def intersect_expand(a, b, bounds=None, lbounds=None):
@@ -252,3 +373,66 @@ def intersect_multi_agg(a, bs, pol, a_vals, b_vals, scale, op="sum", bounds=None
 
 
 intersect_multi_agg.launches = 0
+
+
+def intersect_multi_agg_csr(indptr, indices, edge_values, vbs, caps_b, pol, scale,
+                            op="sum", a=None, va=None, cap_a=None, a_vals=None,
+                            bounds=None, lbounds=None, excludes=None):
+    """The aggregate leaf: ``intersect_multi_agg``'s counts and vals, with
+    rows read from a CSR and no mark written -> (counts (B,) int32, vals (B,)
+    f32).
+
+    Reference r of row i is the neighbour list of ``vbs[r, i]`` cut at
+    ``caps_b[r]`` ((k, B) int32 ids, k = len(pol) = len(caps_b)); a matched
+    key at CSR position p carries ``edge_values[p]``. The base is either a
+    padded (B, cap_a) ``a`` with ``a_vals`` (B, cap_a) f32 or None (every
+    value 1.0: a carried base), or the neighbour list of ``va[i]`` cut at
+    ``cap_a``, carrying its own edge values (a fresh base). Membership,
+    products, order and identities as ``intersect_multi_agg``; ids as in
+    ``intersect_count_csr``. Launches count in
+    ``intersect_multi_agg.launches``."""
+    _check_csr(indptr, indices, edge_values)
+    dev = indptr.device
+    pol = tuple(pol)
+    caps_b = tuple(caps_b)
+    if vbs.dim() != 2:
+        raise ValueError(f"vbs must be (k, B), got {tuple(vbs.shape)}")
+    k, rows = vbs.shape
+    _check_tensor("vbs", vbs, (k, rows), torch.int32, dev)
+    if not 1 <= k == len(pol) == len(caps_b) <= MAX_REFS:
+        raise ValueError(f"vbs holds {k} refs, pol {pol}, caps_b {caps_b}: need "
+                         f"1 <= k == len(pol) == len(caps_b) <= {MAX_REFS}")
+    for c in caps_b:
+        _check_cap("caps_b", c)
+    n_inter = sum(pol)
+    if set(pol) - {0, 1} or pol != (1,) * n_inter + (0,) * (k - n_inter):
+        raise ValueError(f"pol {pol} must be 1s (INTER) then 0s (SUB)")
+    cap_a = _check_base(indptr, a, va, cap_a, rows)
+    if a_vals is not None:
+        if a is None:
+            raise ValueError("a_vals goes with a padded base a; a CSR base va "
+                             "carries its own edge values")
+        _check_tensor("a_vals", a_vals, tuple(a.shape), torch.float32, dev)
+    if op not in AGG_IDS:
+        raise ValueError(f"unknown SVPU aggregate {op!r}; use one of {AGG_OPS}")
+    _check_tensor("scale", scale, (rows,), torch.float32, dev)
+    if excludes is not None:
+        if excludes.dim() != 2:
+            raise ValueError(f"excludes must be (B, E), got {tuple(excludes.shape)}")
+        _check_tensor("excludes", excludes, (rows, excludes.shape[1]), torch.int32, dev)
+    _check_bounds(indptr, bounds, lbounds, rows)
+    if dev.type == "cpu":
+        return intersect_multi_agg_csr_ref(indptr, indices, edge_values, vbs, caps_b,
+                                           pol, scale, op, a, va, cap_a, a_vals,
+                                           bounds, lbounds, excludes)
+    counts = torch.empty(rows, dtype=torch.int32, device=dev)
+    vals = torch.empty(rows, dtype=torch.float32, device=dev)
+    if rows:
+        n_excl = 0 if excludes is None else excludes.shape[1]
+        launch("intersect", "repro_intersect_multi_agg_csr", dev,
+               (indptr, indices, edge_values, a, a_vals, va, vbs, bounds, lbounds,
+                excludes if n_excl else None, scale, counts, vals),
+               (rows, cap_a, k, n_inter, n_excl, AGG_IDS[op],
+                *caps_b, *(1,) * (MAX_REFS - k)))
+        intersect_multi_agg.launches += 1
+    return counts, vals

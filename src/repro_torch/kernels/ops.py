@@ -14,14 +14,24 @@ from repro_torch.core.stream import SENTINEL
 
 from .bitmap import bitmap_and_count, keys_to_bitmap
 from .compact import compact_rows
-from .intersect import (intersect_count, intersect_expand, intersect_mark,
-                        intersect_multi, intersect_multi_agg)
+from .intersect import (intersect_count, intersect_count_csr, intersect_expand,
+                        intersect_mark, intersect_multi, intersect_multi_agg,
+                        intersect_multi_agg_csr)
 from .svinter import vinter
 
 
 def xinter_count(a, b, bounds=None, lbounds=None):
     """Batched bounded S_INTER.C (``lbounds`` = exclusive lower bound)."""
     return intersect_count(a, b, bounds, lbounds)
+
+
+def xinter_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
+                     bounds=None, lbounds=None):
+    """``xinter_count`` with B's rows, and a fresh base's, read from the CSR
+    (vertex ids ``vb`` / ``va`` at their caps; a carried base as padded
+    rows ``a``): the count leaf, with no gathered rows in device memory."""
+    return intersect_count_csr(indptr, indices, vb, cap_b, a, va, cap_a, bounds,
+                               lbounds)
 
 
 def xinter(a, b, bounds=None, out_cap: int | None = None, lbounds=None):
@@ -146,6 +156,19 @@ def xlevel_agg(a, bs, pol, a_vals, b_vals, scale, op: str = "sum", bounds=None,
     _, counts, vals = intersect_multi_agg(a, bs, pol, a_vals, b_vals, scale, op,
                                           bounds, lbounds, excludes)
     return counts, vals
+
+
+def xlevel_agg_csr(indptr, indices, edge_values, vbs, caps_b, pol, scale,
+                   op: str = "sum", a=None, va=None, cap_a=None, a_vals=None,
+                   bounds=None, lbounds=None, excludes=None):
+    """``xlevel_agg`` for k >= 1 references read from the CSR: the (k, B)
+    reference ids ``vbs`` at ``caps_b``, their values from ``edge_values``;
+    the base as padded rows ``a`` (``a_vals``, None for 1.0) or CSR rows of
+    ``va`` with their own values -> (counts, vals), one launch of the
+    value-lane kernel and no mark."""
+    return intersect_multi_agg_csr(indptr, indices, edge_values, vbs, caps_b, pol,
+                                   scale, op, a, va, cap_a, a_vals, bounds, lbounds,
+                                   excludes)
 
 
 def xvinter(a_keys, a_vals, b_keys, b_vals, op: str = "mac"):

@@ -67,9 +67,9 @@ from repro_torch.core.batch import batch_compact_scan, compact_indices_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
 from repro_torch.kernels.compact import compact_rows
-from repro_torch.kernels.ops import (xinter_compact, xinter_count, xlevel_agg,
-                                     xlevel_compact, xlevel_count, xmark,
-                                     xsub_compact, xsub_count)
+from repro_torch.kernels.ops import (xinter_compact, xinter_count_csr, xlevel_agg,
+                                     xlevel_agg_csr, xlevel_compact, xlevel_count,
+                                     xmark, xsub_compact, xsub_count)
 from repro_torch.obs import LegacyStatsView, Telemetry
 from repro_torch.values import edge_value_lookup, prefix_scale
 
@@ -418,19 +418,6 @@ class WaveRunner:
         return torch.stack(rows)
 
     @staticmethod
-    def _stack_val_refs(g, get, caps: dict, refs: tuple[int, ...]) -> torch.Tensor:
-        """Value twin of ``_stack_refs``: the (k, B, cap) f32 stack aligned
-        with the key stack, 0.0 where keys are SENTINEL padding."""
-        capmax = max(caps[j] for j in refs)
-        rows = []
-        for j in refs:
-            v = padded_value_rows(g, get[j], caps[j])
-            if caps[j] < capmax:
-                v = torch.nn.functional.pad(v, (0, capmax - caps[j]))
-            rows.append(v)
-        return torch.stack(rows)
-
-    @staticmethod
     def _excl_vals(op: LevelOp, get):
         """Per-row injectivity keys for the k-reference kernel's excludes
         operand, (B, E) int32 (None when the level declares none)."""
@@ -454,14 +441,24 @@ class WaveRunner:
 
         def fn(g, vals, carry, n):
             get = dict(zip(in_cols, vals))
+            if fused == "inter":
+                # rows straight from the CSR: the reference always, the base
+                # unless it is the carried survivor stream
+                base_kw = dict(a=carry) if op.use_carry else \
+                    dict(va=get[op.base], cap_a=caps[op.base])
+                nrows = carry.shape[0] if op.use_carry else get[op.base].shape[0]
+                ub = self._ub_vec(op, get, n, nrows)
+                lb = self._max_lb(op, get) if op.lb else None
+                ref = op.inter[0]
+                counts = xinter_count_csr(g.indptr, g.indices, get[ref], caps[ref],
+                                          **base_kw, bounds=ub, lbounds=lb)
+                return self._count_total(op, g, get, counts)
             base = self._base(op, g, get, carry, caps)
             if fused:
                 ub = self._ub_vec(op, get, n, base.shape[0])
                 lb = self._max_lb(op, get) if op.lb else None
-                ref = op.inter[0] if fused == "inter" else op.sub[0]
-                nbr, _ = padded_rows(g, get[ref], caps[ref])
-                cfun = xinter_count if fused == "inter" else xsub_count
-                counts = cfun(base, nbr, ub, lbounds=lb)
+                nbr, _ = padded_rows(g, get[op.sub[0]], caps[op.sub[0]])
+                counts = xsub_count(base, nbr, ub, lbounds=lb)
             elif use_xlevel:
                 ub = self._ub_vec(op, get, n, base.shape[0])
                 lb = self._max_lb(op, get) if op.lb else None
@@ -470,12 +467,18 @@ class WaveRunner:
                                       excludes=self._excl_vals(op, get))
             else:
                 counts = keep_of(g, base, get, n).sum(dim=1, dtype=torch.int32)
-            counts = counts.long()
-            if op.tail is not None:
-                col, c = op.tail
-                counts = counts * (g.degrees[get[col].long()].long() - c)
-            return counts.sum()
+            return self._count_total(op, g, get, counts)
         return fn
+
+    @staticmethod
+    def _count_total(op: LevelOp, g, get, counts):
+        """A count leaf's int64 partial: the row counts, times the tail's
+        degree factor when the plan folded its last level into one."""
+        counts = counts.long()
+        if op.tail is not None:
+            col, c = op.tail
+            counts = counts * (g.degrees[get[col].long()].long() - c)
+        return counts.sum()
 
     def _plan_agg_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int):
         """Terminal SVPU aggregate level (``op.agg``) -> one f32 (value,
@@ -488,10 +491,13 @@ class WaveRunner:
         """The aggregate leaf. An embedding's value is the product over all
         pattern edges of the edge weight, from three sources: prefix-prefix
         edges fold into the per-row ``scale`` (``prefix_scale``); the
-        leaf's own INTER references give theirs in the kernel's value lane
-        (``b_vals``); candidate edges covered at an ancestor level (carry
-        reuse, the fresh base's own gather, ``agg_cand_cols``) land in
-        ``a_vals`` (``padded_value_rows``, ``edge_value_lookup``). The pair
+        leaf's own INTER references give theirs in the kernel's value lane,
+        read beside their keys in the CSR; candidate edges covered at an
+        ancestor level land in the base's values: a fresh base's own CSR
+        values, or ``a_vals`` of a carried base (1.0) and of lookups
+        (``agg_cand_cols``: ``edge_value_lookup`` against padded base rows).
+        A leaf with references is one ``xlevel_agg_csr`` launch; a
+        window-only leaf (k = 0) the plain form over padded rows. The pair
         is [op-reduced value, live embedding count]; ``live`` only gates
         the op identity out at ``_finalize``."""
         in_cols = self._in_cols(op)
@@ -501,25 +507,38 @@ class WaveRunner:
 
         def fn(g, vals, carry, n):
             get = dict(zip(in_cols, vals))
+            # the base: CSR rows when fresh and nothing multiplies into its
+            # values; else padded rows with a_vals (None: 1.0)
+            base = va = a_vals = None
             if op.use_carry:
                 base = carry
-                a_vals = torch.ones(base.shape, dtype=torch.float32,
-                                    device=base.device)
-            else:
+            elif op.agg_cand_cols or not refs:
                 base = padded_rows(g, get[op.base], caps[op.base])[0]
                 a_vals = padded_value_rows(g, get[op.base], caps[op.base])
+            else:
+                va = get[op.base]
             for c in op.agg_cand_cols:
-                a_vals = a_vals * edge_value_lookup(g, get[c], base)
+                look = edge_value_lookup(g, get[c], base)
+                a_vals = look if a_vals is None else a_vals * look
+            nrows = get[op.base].shape[0] if base is None else base.shape[0]
             scale = prefix_scale(g, get, op.agg_scale_edges) if op.agg_scale_edges \
-                else torch.ones((base.shape[0],), dtype=torch.float32,
-                                device=base.device)
-            ub = self._ub_vec(op, get, n, base.shape[0])
+                else torch.ones((nrows,), dtype=torch.float32, device=g.device)
+            ub = self._ub_vec(op, get, n, nrows)
             lb = self._max_lb(op, get) if op.lb else None
-            bs = self._stack_refs(g, get, caps, refs) if refs else None
-            bv = self._stack_val_refs(g, get, caps, refs) if refs else None
-            counts, rvals = xlevel_agg(base, bs, pol, a_vals, bv, scale, op.agg,
-                                       ub, lbounds=lb,
-                                       excludes=self._excl_vals(op, get))
+            excl = self._excl_vals(op, get)
+            if refs:
+                counts, rvals = xlevel_agg_csr(
+                    g.indptr, g.indices, g.edge_values,
+                    torch.stack([get[j] for j in refs]), [caps[j] for j in refs],
+                    pol, scale, op.agg, a=base, va=va,
+                    cap_a=None if va is None else caps[op.base], a_vals=a_vals,
+                    bounds=ub, lbounds=lb, excludes=excl)
+            else:
+                if a_vals is None:
+                    a_vals = torch.ones(base.shape, dtype=torch.float32,
+                                        device=base.device)
+                counts, rvals = xlevel_agg(base, None, pol, a_vals, None, scale,
+                                           op.agg, ub, lbounds=lb, excludes=excl)
             # a dead row carries the op identity, so the plain reduce is right
             if op.agg == "sum":
                 value = rvals.sum(dtype=torch.float32)

@@ -110,3 +110,23 @@ def sum_is_exact(total: float, n_edges: int) -> bool:
     positive multiples of 4^-n_edges, so every partial is at most the total
     and f32 holds each exactly while the total is below 2^24 units."""
     return abs(total) < 2.0 ** (24 - 2 * n_edges)
+
+
+def make_csr(stacks, value_stacks=()):
+    """One CSR whose vertices hold the live keys of the given (B, cap) row
+    matrices in turn (vertex j * B + i is row i of stack j), with a value
+    plane per list of value matrices in ``value_stacks``: rows start on any
+    4-byte boundary, empty rows are degree-0 vertices, and the last stack's
+    last row is the last vertex. -> (indptr, indices, [values], [ids])."""
+    live = [x != SENTINEL for x in stacks]
+    lens = np.concatenate([m.sum(axis=1) for m in live])
+    indptr = np.zeros(lens.size + 1, np.int32)
+    np.cumsum(lens, out=indptr[1:])
+    indices = np.concatenate([x[m] for x, m in zip(stacks, live)]
+                             + [np.full(128, SENTINEL, np.int32)]).astype(np.int32)
+    values = [np.concatenate([v[m] for v, m in zip(vs, live)]
+                             + [np.zeros(128, np.float32)]).astype(np.float32)
+              for vs in value_stacks]
+    B = stacks[0].shape[0]
+    ids = [np.arange(j * B, (j + 1) * B, dtype=np.int32) for j in range(len(stacks))]
+    return indptr, indices, values, ids

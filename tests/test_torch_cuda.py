@@ -19,7 +19,8 @@ from repro_torch.kernels import svinter as SV
 from repro_torch.sparse import from_dense, random_csf, spmsp_matmul, ttv
 
 from _torch_rows import (AGG_OPS, AGG_QUERIES, T, make_agg_case, make_bounds, make_case,
-                         make_level_case, make_rows, make_vinter_case, sum_is_exact)
+                         make_csr, make_level_case, make_rows, make_values,
+                         make_vinter_case, sum_is_exact)
 
 pytestmark = pytest.mark.cuda
 
@@ -328,3 +329,91 @@ def test_forest_and_host_path_on_card_equal_cpu(cuda):
         assert dev.stats["runner"] == cpu.stats["runner"]
         assert CP.compact_rows.launches - n == dev.stats["runner"]["host_compactions"]
         assert dev.count_many(["triangle", "three-chain"]) == [11502, 138732]
+
+
+# the leaves' CSR-operand forms: (B, cap_a, cap_b, cut), each row read at
+# cap // cut (cut 2 cuts the rows past half their keys); caps up to 1024 run
+# a warp a row, 2048 a block a row, 32768 past shared memory
+CSR_SHAPES = [(64, 128, 128, 1), (16, 1024, 1024, 1), (32, 2048, 2048, 1),
+              (32, 2048, 2048, 2), (8, 128, 32768, 1)]
+
+
+def _csr_case(cuda, B, cap_a, cap_b, k, seed):
+    """Rows of A and k references as one CSR on the card, values beside
+    them, bounds with a dead row, (B, 2) excludes."""
+    rng = np.random.default_rng(seed)
+    hi = 2 * max(cap_a, cap_b)
+    a = make_rows(rng, B, cap_a, hi)
+    bs = [make_rows(rng, B, cap_b, hi) for _ in range(k)]
+    vals = [np.where(x != SENTINEL, make_values(rng, x.shape), 0).astype(np.float32)
+            for x in (a, *bs)]
+    indptr, indices, (values,), ids = make_csr([a, *bs], [vals])
+    bounds, lbounds = make_bounds(rng, B, hi)
+    bounds[1] = 0
+    excl = np.where(a[:, :2] == SENTINEL, -1, a[:, :2]).astype(np.int32)
+    scale = make_values(rng, (B,))
+    on = lambda x: T(np.ascontiguousarray(x)).to(cuda)          # noqa: E731
+    return dict(a=on(a), bs=[on(x) for x in bs], a_vals=on(vals[0]), indptr=on(indptr), indices=on(indices),
+                values=on(values), va=on(ids[0]), vbs=on(np.stack(ids[1:])),
+                bounds=on(bounds), lbounds=on(lbounds), excl=on(excl), scale=on(scale))
+
+
+@pytest.mark.parametrize("B,cap_a,cap_b,cut", CSR_SHAPES)
+def test_count_csr_kernel_equals_plain_version(cuda, B, cap_a, cap_b, cut):
+    """A and B from the CSR, and A padded (a carried base): bit for bit
+    against the plain version and the padded form on the cut rows; one
+    launch a call."""
+    c = _csr_case(cuda, B, cap_a, cap_b, 1, B + cap_a + cut)
+    ca, cb = cap_a // cut, cap_b // cut
+    a_cut, b_cut = c["a"][:, :ca].contiguous(), c["bs"][0][:, :cb].contiguous()
+    for bd, lbd in ((c["bounds"], c["lbounds"]), (c["bounds"], None), (None, None)):
+        args = (c["indptr"], c["indices"], c["vbs"][0], cb)
+        n = K.intersect_count.launches
+        got = K.intersect_count_csr(*args, va=c["va"], cap_a=ca, bounds=bd, lbounds=lbd)
+        got_pad = K.intersect_count_csr(*args, a=a_cut, bounds=bd, lbounds=lbd)
+        torch.cuda.synchronize()
+        assert K.intersect_count.launches == n + 2
+        want = K.intersect_count_csr_ref(*args, va=c["va"], cap_a=ca, bounds=bd,
+                                         lbounds=lbd)
+        assert torch.equal(got, want) and torch.equal(got_pad, want)
+        assert torch.equal(want, K.intersect_count_ref(a_cut, b_cut, bd, lbd))
+
+
+@pytest.mark.parametrize("op", AGG_OPS)
+@pytest.mark.parametrize("pol", POLS)
+@pytest.mark.parametrize("B,cap_a,cap_b,cut", CSR_SHAPES)
+def test_multi_agg_csr_kernel_equals_plain_version(cuda, B, cap_a, cap_b, cut, pol, op):
+    """The no-mark aggregate leaf, dyadic values: counts and vals bit for
+    bit, with a CSR base, a padded base at 1.0 and one with a_vals; odd
+    references read at half the cap; one launch a call."""
+    c = _csr_case(cuda, B, cap_a, cap_b, len(pol), B + cap_b + len(pol))
+    ca, cb = cap_a // cut, cap_b // cut
+    caps = tuple(cb if r % 2 == 0 else max(1, cb // 2) for r in range(len(pol)))
+    a_cut, av_cut = c["a"][:, :ca].contiguous(), c["a_vals"][:, :ca].contiguous()
+    args = (c["indptr"], c["indices"], c["values"], c["vbs"], caps, pol, c["scale"], op)
+    for kw in (dict(va=c["va"], cap_a=ca), dict(a=a_cut), dict(a=a_cut, a_vals=av_cut)):
+        for bd, lbd, ex in ((c["bounds"], c["lbounds"], c["excl"]), (None, None, None)):
+            n = K.intersect_multi_agg.launches
+            got = K.intersect_multi_agg_csr(*args, **kw, bounds=bd, lbounds=lbd, excludes=ex)
+            torch.cuda.synchronize()
+            assert K.intersect_multi_agg.launches == n + 1
+            want = K.intersect_multi_agg_csr_ref(*args, **kw, bounds=bd, lbounds=lbd,
+                                                 excludes=ex)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_leaves_on_card_gather_no_padded_rows(cuda, monkeypatch):
+    """The triangle's count leaf and weighted triangle's aggregate leaf read
+    their rows from the CSR on the card: no padded_rows gather, the CPU's
+    count and sum."""
+    from repro_torch.mining import engine
+    g = get_dataset("email-eu-core", 0.25)
+    wg = with_edge_values(g, edge_weights(edge_list(g), seed=0))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the leaf gathered padded rows")
+    want = (Miner(g, device="cpu").count("triangle"),
+            Miner(wg, device="cpu").aggregate("triangle", "sum"))
+    monkeypatch.setattr(engine, "padded_rows", refuse)
+    monkeypatch.setattr(engine, "padded_value_rows", refuse)
+    assert (Miner(g).count("triangle"), Miner(wg).aggregate("triangle", "sum")) == want
