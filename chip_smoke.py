@@ -22,16 +22,21 @@ exception exits non-zero:
               ways (kernel_times: device ms, call ms, host us per call) and
               its plain version by CUDA events; ops.xinter against the CPU's
               batch_inter
-  4. csr      the count and aggregate leaves' CSR-operand forms on a
-              synthetic CSR of the same rows, against their plain versions:
-              warp-a-row and block-a-row caps, rows past shared memory, rows
-              cut at their cap, empty rows, the last vertex, unaligned row
-              starts, bound-0 rows; timed as in parity
+  4. csr      the CSR-operand forms (the count and aggregate leaves; the SUB
+              count leaf, the SUB and per-reference marks, the general count
+              leaf and general expand marks) on a synthetic CSR of the same
+              rows, against their plain versions: warp-a-row and block-a-row
+              caps, rows past shared memory, rows cut at their cap, empty
+              rows, the last vertex, unaligned row starts, bound-0 rows, every
+              polarity, E = 2 excludes; timed as in parity
   5. main     repro_torch.Miner counts triangles, cliques, three-chains and
               the 4-motifs on mico, youtube, wiki-vote and email-eu-core at
               the sizes below, and 4-cycle once more with fused_level=False;
               each count must equal the JAX package's (mico's three-chains
-              also the closed form); a triangle's leaf gathers no padded rows
+              also the closed form); each query's padded-row gathers are
+              printed: none for a triangle or three-chain-induced, and the
+              level-2 expand's fresh base (plus an INTER level's reference)
+              alone for the other SUB and general queries
   6. weighted Miner.aggregate (sum, max, min) on the same graphs with
               dyadic edge weights: each value must equal the JAX package's
               (bit for bit where f32 holds every partial sum, else within
@@ -107,7 +112,7 @@ MAIN_PATH = (
 # run again with fused_level=False: one mark launch per reference; 4-cycle's
 # count level has k = 2 references (one INTER, one SUB)
 UNFUSED = ("email-eu-core", 0.25, "4-cycle", 161630, 2)
-PROFILED = ("triangle", "4-clique", "5-clique", "three-chain-induced", "paw")
+PROFILED = ("triangle", "4-clique", "5-clique", "three-chain-induced", "diamond", "paw")
 
 # The JAX package's weighted aggregates on the same graphs, weights
 # edge_weights(edge_list(g), seed=0), from
@@ -184,6 +189,10 @@ CSR_AGG_SHAPES = ((2048, 128, 2, 128, 1), (2048, 1024, 1, 1024, 1), (2048, 1024,
                   (2048, 2048, 2, 2048, 1), (2048, 2048, 2, 2048, 2), (128, 128, 3, 32768, 1))
 # the weighted triangle leaf's shape: one INTER reference, a warp a row
 CSR_AGG_TRIANGLE = (2048, 1024, 1, 1024)
+# the SUB and general levels' CSR forms run on CSR_AGG_SHAPES too, timed at
+# MULTI_TIMED (a block a row) and at this warp-a-row shape, the path's usual
+# bucket
+CSR_LEVEL_WARP = (2048, 1024, 2, 1024)
 # compact-rows: (B, cap, out_cap) x keep densities; (4096, 256, 64) cuts rows
 COMPACT_SHAPES = (((2048, 2048, 2048), (0.05, 0.3, 1.0)), ((2048, 128, 128), (0.3,)),
                   ((4096, 256, 64), (0.3, 1.0)))
@@ -733,15 +742,141 @@ def _parity_agg_csr(K, report, gen, B, cap_a, k, cap_b, cut):
                                          csr_plain_ms=plain_ms, csr_bound_ms=bound_ms)
 
 
+def _check_level_form(K, report, name: str, label: str, run, want, launches: int) -> None:
+    """One call of a SUB or general level's CSR form: bit for bit against
+    its plain version's ``want``, one launch on ``name``'s counter."""
+    counter = getattr(K, name)
+    n0 = counter.launches
+    got = run()
+    launched = counter.launches - n0
+    torch.cuda.synchronize()
+    err = (got.int() - want.int()).abs().max().item() if got.numel() else 0
+    _record(report, name, err)
+    if got.dtype != want.dtype or not torch.equal(got, want) or launched != launches:
+        raise SystemExit(f"[csr] MISMATCH {label}: max err {err}, {launched} launches")
+
+
+def _time_level_form(K, report, name: str, key: str, label: str, run, plain, bound) -> None:
+    """Times of one CSR form beside its plain version and its bound; kept in
+    ``report[name]`` under ``key`` at the timed shape."""
+    times = kernel_times(run)
+    plain_ms = cuda_ms(plain)
+    bound_ms, by = bound
+    print(f"[csr] {label}: {_times_text(times)}, {plain_ms:.4f} ms plain (gathers + "
+          f"padded plain), bound {bound_ms:.4f} ms ({by})", flush=True)
+    if key:
+        report[name].update({f"{key}_{n}": v for n, v in times.items()},
+                            **{f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": bound_ms})
+
+
+def _parity_level_csr(K, report, gen, B, cap_a, k, cap_b, cut):
+    """The SUB and general levels' CSR forms at one shape: the SUB count leaf
+    (CSR and padded base), the INTER and SUB marks over a padded base, the
+    general count leaf (CSR and padded base) and the general expand mark,
+    over the polarities of at most k refs (odd refs at half the cap), with
+    and without bounds and E = 2 excludes, bit for bit against their plain
+    versions; timed at MULTI_TIMED and CSR_LEVEL_WARP."""
+    span = 2 * cap_b
+    a = sorted_rows(gen, B, cap_a, span)
+    bs = [sorted_rows(gen, B, cap_b, span) for _ in range(k)]
+    indptr, indices, _, ids = csr_of([a, *bs])
+    va, vbs_all = ids[0], torch.stack(ids[1:])
+    bounds, lbounds = bound_vectors(gen, B, span)
+    excl = _excludes(gen, a)
+    ca, cb = cap_a // cut, cap_b // cut
+    a_cut = a[:, :ca].contiguous()
+    csr = (indptr, indices)
+    bases = {"csr": dict(va=va, cap_a=ca), "padded": dict(a=a_cut)}
+    shape = f"B={B} cap_a={ca} cap_b={cb}"
+    for bd, lbd in ((bounds, lbounds), (None, None)):
+        bk = dict(bounds=bd, lbounds=lbd)
+        tag = f"bounds={'set' if bd is not None else 'None'}"
+        for base, kw in bases.items():
+            args = (*csr, vbs_all[0], cb)
+            _check_level_form(K, report, "intersect_mark", f"sub_count_csr {shape} {base} {tag}",
+                              lambda: K.intersect_sub_count_csr(*args, **kw, **bk),
+                              K.intersect_sub_count_csr_ref(*args, **kw, **bk), 1)
+        for sub in (False, True):
+            args = (*csr, a_cut, vbs_all[0], cb, sub)
+            _check_level_form(K, report, "intersect_mark", f"mark_csr {shape} sub={sub} {tag}",
+                              lambda: K.intersect_mark_csr(*args, **bk),
+                              K.intersect_mark_csr_ref(*args, **bk), 1)
+    pols = [p for p in MULTI_POLS if len(p) <= k]
+    for pol in pols:
+        vbs = vbs_all[: len(pol)].contiguous()
+        caps = tuple(cb if r % 2 == 0 else max(1, cb // 2) for r in range(len(pol)))
+        for bd, lbd, ex in ((bounds, lbounds, excl), (None, None, excl),
+                            (bounds, lbounds, None), (None, None, None)):
+            bk = dict(bounds=bd, lbounds=lbd, excludes=ex)
+            tag = (f"pol={pol} bounds={'set' if bd is not None else 'None'} "
+                   f"excludes={'set' if ex is not None else 'None'}")
+            for base, kw in bases.items():
+                args = (*csr, vbs, caps, pol)
+                _check_level_form(K, report, "intersect_multi",
+                                  f"multi_csr {shape} {base} {tag}",
+                                  lambda: K.intersect_multi_csr(*args, **kw, **bk),
+                                  K.intersect_multi_csr_ref(*args, **kw, **bk), 1)
+            args = (*csr, a_cut, vbs, caps, pol)
+            _check_level_form(K, report, "intersect_multi", f"multi_mark_csr {shape} {tag}",
+                              lambda: K.intersect_multi_mark_csr(*args, **bk),
+                              K.intersect_multi_mark_csr_ref(*args, **bk), 1)
+    deg = indptr[1:] - indptr[:-1]
+    print(f"[csr] SUB / general level forms {shape} (odd refs {max(1, cb // 2)}) from rows "
+          f"of ({cap_a},{cap_b}): sub_count_csr x 2 bases, mark_csr INTER and SUB, "
+          f"multi_csr x 2 bases and multi_mark_csr over pols {pols} x bounds x excludes: "
+          f"equal bit for bit; {int((deg > cb).sum())} rows cut, {int((deg == 0).sum())} "
+          f"empty, {int((indptr[:-1] % 4 != 0).sum())} starts off 16 bytes, "
+          f"{int((bounds == 0).sum())} bound-0 rows", flush=True)
+    if (B, cap_a, k, cap_b) not in (MULTI_TIMED, CSR_LEVEL_WARP) or cut != 1:
+        return
+    key = "csr" if (B, cap_a, k, cap_b) == MULTI_TIMED else "csr_warp"
+    pol = (1,) * (k - 1) + (0,)
+    vbs = vbs_all[:k].contiguous()
+    caps = (cap_b,) * k
+    a_live = _window_keys(a, bounds, lbounds)
+    ref_live = _window_keys(torch.stack(bs), bounds, lbounds)
+    b0_live = _window_keys(bs[0], bounds, lbounds)
+    mark_bytes = B * cap_a          # a 1-byte mark
+    forms = (
+        ("intersect_mark", "sub_count", f"sub_count_csr B={B} caps=({cap_a},{cap_b}) CSR base",
+         lambda: K.intersect_sub_count_csr(*csr, vbs[0], cap_b, va=va, cap_a=cap_a,
+                                           bounds=bounds, lbounds=lbounds),
+         lambda: K.intersect_sub_count_csr_ref(*csr, vbs[0], cap_b, va=va, cap_a=cap_a,
+                                               bounds=bounds, lbounds=lbounds),
+         _bound(B, cap_b, a_live + b0_live, a_live, 1, B * 4)),
+        ("intersect_mark", "mark", f"mark_csr B={B} caps=({cap_a},{cap_b}) SUB, bool mark",
+         lambda: K.intersect_mark_csr(*csr, a, vbs[0], cap_b, True, bounds, lbounds),
+         lambda: K.intersect_mark_csr_ref(*csr, a, vbs[0], cap_b, True, bounds, lbounds),
+         _bound(B, cap_b, a_live + b0_live, a_live, 1, mark_bytes)),
+        ("intersect_multi", "count", f"multi_csr B={B} cap_a={cap_a} k={k} cap_b={cap_b} "
+         f"pol={pol} E=2 CSR base, no mark",
+         lambda: K.intersect_multi_csr(*csr, vbs, caps, pol, va=va, cap_a=cap_a,
+                                       bounds=bounds, lbounds=lbounds, excludes=excl),
+         lambda: K.intersect_multi_csr_ref(*csr, vbs, caps, pol, va=va, cap_a=cap_a,
+                                           bounds=bounds, lbounds=lbounds, excludes=excl),
+         _bound(B, cap_b, a_live + ref_live, a_live, k, B * 4, extra_in=excl.numel())),
+        ("intersect_multi", "mark", f"multi_mark_csr B={B} cap_a={cap_a} k={k} "
+         f"cap_b={cap_b} pol={pol} E=2, bool mark",
+         lambda: K.intersect_multi_mark_csr(*csr, a, vbs, caps, pol, bounds, lbounds, excl),
+         lambda: K.intersect_multi_mark_csr_ref(*csr, a, vbs, caps, pol, bounds, lbounds,
+                                                excl),
+         _bound(B, cap_b, a_live + ref_live, a_live, k, mark_bytes, extra_in=excl.numel())),
+    )
+    for name, form, label, run, plain, bound in forms:
+        _time_level_form(K, report, name, f"{key}_{form}", label, run, plain, bound)
+
+
 def phase_csr(report: dict) -> None:
-    """The count and aggregate leaves' CSR-operand forms against their plain
-    versions, and their times at the timed shapes."""
+    """The CSR-operand forms against their plain versions, and their times
+    at the timed shapes."""
     from repro_torch.kernels import intersect as K
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     for shape in CSR_SHAPES:
         _parity_count_csr(K, report, gen, *shape)
     for shape in CSR_AGG_SHAPES:
         _parity_agg_csr(K, report, gen, *shape)
+    for shape in CSR_AGG_SHAPES:
+        _parity_level_csr(K, report, gen, *shape)
 
 
 def _vinter_bound(ak, bk, rows: int) -> tuple[float, str]:
@@ -1002,8 +1137,13 @@ def count_gathers(run):
     return out, calls
 
 
-# queries whose leaves read every row from the CSR: no padded gathers
-GATHER_FREE = ("triangle",)
+# queries whose every level reads its rows from the CSR: no padded gathers
+GATHER_FREE = ("triangle", "three-chain-induced")
+# padded-row gathers per call of the level-2 expand of the queries with SUB
+# or general levels: its fresh base, plus the reference of an INTER expand
+# level (the expand kernel's operand); no count leaf, SUB or general
+# reference gathers
+LEVEL2_GATHERS = {"diamond": 2, "paw": 2, "4-cycle": 1, "4-path": 1, "4-star": 1}
 
 
 def phase_main_path(graphs: dict):
@@ -1017,13 +1157,20 @@ def phase_main_path(graphs: dict):
     for name, scale, queries in MAIN_PATH:
         miner = Miner(graphs[name, scale], device=DEVICE)
         for query, want in queries:
+            execs = dict(miner.runner.level_execs)
             counts[name, scale, query], gathers = count_gathers(
                 lambda: _mine(miner, kernels, f"{name} x{scale}", query, want))
-            if query in GATHER_FREE:
-                print(f"[main] {name} x{scale} {query}: padded-row gathers {gathers}",
-                      flush=True)
-                if any(gathers.values()):
-                    raise SystemExit(f"[main] {name} {query}: the leaf gathered padded rows")
+            level2 = miner.runner.level_execs.get(("expand", 2), 0) \
+                - execs.get(("expand", 2), 0)
+            expect = 0 if query in GATHER_FREE else LEVEL2_GATHERS.get(query)
+            print(f"[main] {name} x{scale} {query}: padded-row gathers {gathers} over "
+                  f"{level2} level-2 expand calls" + ("" if expect is None else
+                                                      f" (expected {expect} a call)"),
+                  flush=True)
+            if expect is not None and (gathers["padded_value_rows"]
+                                       or gathers["padded_rows"] != expect * level2):
+                raise SystemExit(f"[main] {name} {query}: padded-row gathers {gathers} "
+                                 f"!= {expect} per level-2 expand call")
     # mico's induced three-chains, independently: Σ_v C(d_v, 2) − 3·triangles
     d = graphs["mico", 1.0].degrees.cpu().numpy().astype("int64")
     wedges = int((d * (d - 1) // 2).sum())
@@ -1361,9 +1508,36 @@ def phase_bitmap(graphs: dict) -> dict:
     return {"bitmap_and_count": launches}
 
 
+# kernel symbol -> the wrapper whose launches it is, for this tree's kernels
+# and for a parent's (chip_smoke.py --src): a template's first arguments say
+# which wrapper instantiated it
+KERNEL_OWNERS = (
+    (r"level_kernel<[^,]*MarkLane", "intersect_mark"),
+    (r"level_kernel<[^,]*MultiLane", "intersect_multi"),
+    (r"level_kernel<[^,]*AggLane|multi_agg_kernel<", "intersect_multi_agg"),
+    (r"count_kernel<true, (true|false),", "intersect_mark"),
+    (r"count_kernel<", "intersect_count"),
+    (r"expand_kernel|intersect_rows_kernel<true, true>", "intersect_expand"),
+    (r"intersect_rows_kernel<true, false>", "intersect_mark"),
+    (r"intersect_multi_kernel", "intersect_multi"),
+    (r"vinter_kernel", "vinter"),
+    (r"compact_rows_kernel", "compact_rows"),
+    (r"bitmap_and_count_kernel", "bitmap_and_count"),
+)
+
+
+def kernel_owner(symbol: str) -> str | None:
+    import re
+    for pattern, name in KERNEL_OWNERS:
+        if re.search(pattern, symbol):
+            return name
+    return None
+
+
 def _profile(label: str, run) -> None:
     """A warm untraced run of ``run()``, then one under torch.profiler;
-    device busy = summed device self time."""
+    device busy = summed device self time, and each kernel wrapper's share
+    (its symbols' device time summed over the run's traced launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1380,10 +1554,19 @@ def _profile(label: str, run) -> None:
            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    owned: dict = {}
+    for e in dev:
+        name = kernel_owner(e.key)
+        if name is not None:
+            ms, n = owned.get(name, (0.0, 0))
+            owned[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
     print(f"[profile] {label}: {wall:.1f} ms wall untraced, device busy {busy:.1f} ms "
           f"= {100 * busy / wall:.1f}% of it; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms "
                       f"x{e.count}" for e in top), flush=True)
+    print(f"[profile] {label}: kernels' own device time: "
+          + "; ".join(f"{name} {ms:.3f} ms x{n} ({ms / n:.4f} ms a launch)"
+                      for name, (ms, n) in sorted(owned.items())), flush=True)
 
 
 def phase_profile(graphs: dict) -> None:

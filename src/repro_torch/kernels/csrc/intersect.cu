@@ -7,10 +7,15 @@
 //   repro_intersect_expand <- repro/kernels/intersect.py:intersect_expand_pallas
 //                             (_expand_kernel): mark (B, cap_a) and counts (B,)
 //   repro_intersect_mark   <- repro/kernels/intersect.py:intersect_mark_pallas
-//                             (_mark_kernel): mark (B, cap_a)
+//   repro_intersect_mark_csr  (_mark_kernel): mark (B, cap_a); the _csr entry
+//   repro_intersect_sub_count_csr  (the SUB levels) takes B's row from the
+//                             CSR, either polarity and the window inside, and
+//                             writes a 1-byte mark; the sub_count entry (the
+//                             SUB count leaf) writes counts and no mark
 //   repro_intersect_multi  <- repro/kernels/intersect.py:intersect_multi_pallas
-//                             (_multi_kernel): k-reference mark and counts,
-//                             contract further down
+//   repro_intersect_multi_csr (_multi_kernel): k-reference mark and counts,
+//                             contract further down; the _csr entry (general
+//                             levels) reads the references from the CSR
 //   repro_intersect_multi_agg <- repro/kernels/intersect.py:
 //   repro_intersect_multi_agg_csr  intersect_multi_agg_pallas
 //                             (_multi_agg_kernel): the k-reference level with
@@ -29,11 +34,11 @@
 // Bound on an H100 SXM: the kernels move bytes, not operations. Each reads
 // at most B*(cap_a+cap_b)*4 bytes of rows, and at least the keys inside each
 // row's (lbound, bound) window, plus 8 bytes of bounds per row; it writes
-// 4 bytes per row of counts and/or B*cap_a*4 of mark; all at 3.35 TB/s.
-// The compare work is ~log2(cap_b) integer operations per A key, far below
-// the card's integer rate.
+// 4 bytes per row of counts and/or B*cap_a*4 of mark (B*cap_a of a 1-byte
+// mark); all at 3.35 TB/s. The compare work is ~log2(cap_b) integer
+// operations per A key, far below the card's integer rate.
 //
-// Design of expand and mark (the first version, one block a row):
+// Design of expand (the first version, one block a row):
 //   * warp 0 finds B's window of keys inside (lbound, bound) and warp 1
 //     A's window, each by a 32-way warp-cooperative search. Slots outside
 //     the window are never searched (the TPU schedule's whole-tile skip);
@@ -42,9 +47,12 @@
 //   * threads stride over A's window and binary-search the staged window,
 //     writing the mark row in full (0 outside A's window);
 //   * a warp-shuffle plus shared-memory block reduction gives the count.
-// The count kernel's redesign is described where it is defined.
+// The count kernel's and the level kernel's (mark, multi, multi-agg)
+// designs are described where they are defined.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "rows.cuh"
 
@@ -54,8 +62,8 @@ constexpr int kStageKeys = 8192;
 constexpr int kWarpRowCap = 1024;   // rows of at most this many keys: a warp a row
 constexpr int kRowWarps = 4;        // rows (warps) per block in that mode
 
-// Block-wide sum of each thread's v; thread 0 writes it to *out. Every
-// thread of the block must call it: it holds a __syncthreads.
+// Block-wide sum of each thread's v; thread 0 writes it to *out (out NULL:
+// nowhere). Every thread of the block must call it: it holds a __syncthreads.
 __device__ __forceinline__ void block_sum_to(int v, int* warp_sums, int* out) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -66,18 +74,15 @@ __device__ __forceinline__ void block_sum_to(int v, int* warp_sums, int* out) {
     const int nwarps = blockDim.x >> 5;
     int w = tid < nwarps ? warp_sums[tid] : 0;
     for (int off = 16; off > 0; off >>= 1) w += __shfl_down_sync(kFull, w, off);
-    if (tid == 0) *out = w;
+    if (tid == 0 && out) *out = w;
   }
 }
 
-template <bool kMark, bool kCount>
-__global__ void intersect_rows_kernel(const int* __restrict__ a,
-                                      const int* __restrict__ b,
-                                      const int* __restrict__ bounds,
-                                      const int* __restrict__ lbounds,
-                                      int* __restrict__ mark,
-                                      int* __restrict__ counts,
-                                      int cap_a, int cap_b, int stage_keys) {
+__global__ void expand_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                              const int* __restrict__ bounds,
+                              const int* __restrict__ lbounds, int* __restrict__ mark,
+                              int* __restrict__ counts, int cap_a, int cap_b,
+                              int stage_keys) {
   extern __shared__ int staged[];
   __shared__ int win[4];          // a_lo, a_hi, b_lo, b_hi
   __shared__ int warp_sums[32];
@@ -117,45 +122,30 @@ __global__ void intersect_rows_kernel(const int* __restrict__ a,
   const int* __restrict__ bw = stage ? staged : brow + b_lo;
 
   int hits = 0;
-  if constexpr (kMark) {
-    int* __restrict__ mrow = mark + static_cast<size_t>(row) * cap_a;
-    for (int s = tid; s < cap_a; s += blockDim.x) {
-      int hit = 0;
-      if (s >= a_lo && s < a_hi) hit = contains(bw, nb, arow[s]);
-      mrow[s] = hit;
-      hits += hit;
-    }
-  } else {
-    for (int s = a_lo + tid; s < a_hi; s += blockDim.x) {
-      hits += contains(bw, nb, arow[s]);
-    }
+  int* __restrict__ mrow = mark + static_cast<size_t>(row) * cap_a;
+  for (int s = tid; s < cap_a; s += blockDim.x) {
+    int hit = 0;
+    if (s >= a_lo && s < a_hi) hit = contains(bw, nb, arow[s]);
+    mrow[s] = hit;
+    hits += hit;
   }
-
-  if constexpr (kCount) block_sum_to(hits, warp_sums, counts + row);
-}
-
-template <bool kMark, bool kCount>
-int launch(const int* a, const int* b, const int* bounds, const int* lbounds,
-           int* mark, int* counts, int rows, int cap_a, int cap_b,
-           void* stream) {
-  const int threads = cap_a >= 2048 ? 256 : 128;
-  const int stage_keys = cap_b < kStageKeys ? cap_b : kStageKeys;
-  intersect_rows_kernel<kMark, kCount>
-      <<<rows, threads, stage_keys * sizeof(int),
-         static_cast<cudaStream_t>(stream)>>>(a, b, bounds, lbounds, mark,
-                                              counts, cap_a, cap_b,
-                                              stage_keys);
-  return static_cast<int>(cudaGetLastError());
+  block_sum_to(hits, warp_sums, counts + row);
 }
 
 
 // ---------------------------------------------------------------------------
-// repro_intersect_count and repro_intersect_count_csr: the count leaf.
+// repro_intersect_count, repro_intersect_count_csr and (kSub)
+// repro_intersect_sub_count_csr: the count leaves.
 //
 // Operands: A's rows and B's rows each come from a row source (rows.cuh):
 // a padded (B, cap) matrix or a CSR, so the engine's count leaf passes
 // vertex ids and no gathered matrix crosses device memory. The bound is the
 // one above with B*4 bytes of counts written; nothing else.
+//
+// kSub: the SUB count leaf (an induced non-edge, S_SUB.C) counts
+// |A's window| - |A ∩ B inside the window|: a key of A's window is in B iff
+// it is in B's window (the same (lbound, bound)), so the complement costs
+// what the intersection does, and no mark is written.
 //
 // At the main path's shapes a row is a few hundred keys and the kernel's
 // time is the latency of each row's chain of dependent loads, not bytes.
@@ -179,7 +169,7 @@ int launch(const int* a, const int* b, const int* bounds, const int* lbounds,
 //     binary search, then a linear merge of its slice. It keeps the per-key
 //     binary search where A's window is much the shorter;
 //   * a warp shuffle (and across warps, shared memory) sums the row.
-template <bool kWarp, class ARows, class BRows>
+template <bool kSub, bool kWarp, class ARows, class BRows>
 __global__ void count_kernel(ARows A, BRows B, const int* __restrict__ bounds,
                              const int* __restrict__ lbounds,
                              int* __restrict__ counts, int rows, int stage_a,
@@ -209,6 +199,7 @@ __global__ void count_kernel(ARows A, BRows B, const int* __restrict__ bounds,
       const int2 bw = warp_window<BRows::kPadded>(bk, b.n, lb, ub);
       hits = team_intersect_count(ak + aw.x, aw.y - aw.x, bk + bw.x, bw.y - bw.x,
                                   lane, 32);
+      if constexpr (kSub) hits = (lane == 0 ? aw.y - aw.x : 0) - hits;
     }
     for (int off = 16; off > 0; off >>= 1) hits += __shfl_down_sync(kFull, hits, off);
     if (lane == 0) counts[row] = hits;
@@ -227,8 +218,9 @@ __global__ void count_kernel(ARows A, BRows B, const int* __restrict__ bounds,
     }
     __syncthreads();
     // lb + 1 < ub on a live row, so each window's lower end <= its upper
-    const int na = win[1] - win[0], nb = win[3] - win[2];
-    const bool stage = !dead && na > 0 && nb > 0;
+    // (a dead row never writes win: its ends are not read)
+    const int na = dead ? 0 : win[1] - win[0], nb = dead ? 0 : win[3] - win[2];
+    const bool stage = na > 0 && nb > 0;
     if (stage) {
       if (na <= stage_a) stage_async(smem, a.keys + win[0], na, threadIdx.x, blockDim.x);
       if (nb <= stage_b)
@@ -246,25 +238,26 @@ __global__ void count_kernel(ARows A, BRows B, const int* __restrict__ bounds,
           : bsrc;
       hits = team_intersect_count(ap, na, bp, nb, threadIdx.x, blockDim.x);
     }
+    if constexpr (kSub) hits = (threadIdx.x == 0 ? na : 0) - hits;
     block_sum_to(hits, warp_sums, counts + row);
   }
 }
 
-template <class ARows, class BRows>
+template <bool kSub, class ARows, class BRows>
 int launch_count(ARows A, BRows B, const int* bounds, const int* lbounds,
                  int* counts, int rows, int cap_a, int cap_b, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sa = (cap_a + 3) & ~3, sb = (cap_b + 3) & ~3;
   if (cap_a <= kWarpRowCap && cap_b <= kWarpRowCap) {
-    count_kernel<true><<<(rows + kRowWarps - 1) / kRowWarps, 32 * kRowWarps,
-                         kRowWarps * (sa + sb + 8) * sizeof(int), st>>>(
+    count_kernel<kSub, true><<<(rows + kRowWarps - 1) / kRowWarps, 32 * kRowWarps,
+                               kRowWarps * (sa + sb + 8) * sizeof(int), st>>>(
         A, B, bounds, lbounds, counts, rows, sa, sb);
   } else {
     const int half = kStageKeys / 2;
     const int stage_a = sa < half ? sa : half, stage_b = sb < half ? sb : half;
     // 128 threads: the four window ends need four warps, and more resident
     // rows hide more of each row's load latency than wider blocks would
-    count_kernel<false><<<rows, 128, (stage_a + stage_b + 8) * sizeof(int), st>>>(
+    count_kernel<kSub, false><<<rows, 128, (stage_a + stage_b + 8) * sizeof(int), st>>>(
         A, B, bounds, lbounds, counts, rows, stage_a, stage_b);
   }
   return static_cast<int>(cudaGetLastError());
@@ -272,119 +265,31 @@ int launch_count(ARows A, BRows B, const int* bounds, const int* lbounds,
 
 
 // ---------------------------------------------------------------------------
-// k-reference level: repro_intersect_multi
+// The level kernel: repro_intersect_multi (_csr), repro_intersect_mark
+// (_csr) and repro_intersect_multi_agg (_csr), one template.
 //
-// Contract: bs is the (k, B, cap_b) stack of reference rows, each a sorted
-// SENTINEL-padded set (a narrower ref is padded with SENTINEL to cap_b); the
-// first n_inter refs are INTER, the rest SUB. Slot s of row i is kept iff
-// a[i,s] is in every INTER ref's row i, in no SUB ref's row i,
+// Contract of multi: bs is the (k, B, cap_b) stack of reference rows, each a
+// sorted SENTINEL-padded set (a narrower ref is padded with SENTINEL to
+// cap_b); the first n_inter refs are INTER, the rest SUB. Slot s of row i is
+// kept iff a[i,s] is in every INTER ref's row i, in no SUB ref's row i,
 // lbounds[i] < a[i,s] < bounds[i] (so a[i,s] != SENTINEL) and
 // a[i,s] != excludes[i,e] for every e < n_excl (-1 is a no-op: keys are
 // >= 0). mark (B, cap_a) is 1 on kept slots and 0 elsewhere; counts (B,)
 // counts them. bounds/lbounds NULL as above; excludes NULL when n_excl == 0.
-//
-// Bound: bytes again. The least read is the window keys of A and of each
-// ref (a key outside (lbound, bound) can neither be kept nor decide a kept
-// key), the bounds and the excludes; the writes are the mark and the
-// counts. Compare work is at most k binary searches per A window key.
-//
-// Design (simple first): the rows kernel with a loop over refs. The TPU
-// kernel streams each ref's B-tiles past a resident A-tile and scores hits
-// +1 (INTER) / -(k+1) (SUB), a tiling artifact; here each thread searches
-// ref by ref for its key and stops at the first INTER miss or SUB hit.
-//   * one block per row; warps find A's window and each ref's window (the
-//     same 32-way search), a warp per ref in turn;
-//   * refs are staged in shared memory in order while their windows fit
-//     kStageKeys together; a ref past that is searched in global memory;
-//   * the mark row is written in full (0 outside A's window), and the
-//     block sum gives the count.
-__global__ void intersect_multi_kernel(const int* __restrict__ a,
-                                       const int* __restrict__ bs,
-                                       const int* __restrict__ bounds,
-                                       const int* __restrict__ lbounds,
-                                       const int* __restrict__ excludes,
-                                       int* __restrict__ mark,
-                                       int* __restrict__ counts, int rows,
-                                       int cap_a, int cap_b, int k,
-                                       int n_inter, int n_excl,
-                                       int stage_keys) {
-  extern __shared__ int staged[];
-  __shared__ int win[2 * kMaxRefs + 2];   // (lo, hi) per ref, then A's
-  __shared__ int off[kMaxRefs];           // staged offset, -1: global
-  __shared__ int warp_sums[32];
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int* __restrict__ arow = a + static_cast<size_t>(row) * cap_a;
-  const int ub = bounds ? bounds[row] : kSentinel;
-  const int lb = lbounds ? lbounds[row] : -1;
-  const bool dead = static_cast<long long>(ub) <= static_cast<long long>(lb) + 1;
-
-  // warp w finds the window of ref w, w + nwarps, ...; index k is A
-  for (int r = warp; r <= k; r += nwarps) {
-    const int* rrow = r < k ? bs + (static_cast<size_t>(r) * rows + row) * cap_b
-                            : arow;
-    const int n = r < k ? cap_b : cap_a;
-    int lo = 0, hi = 0;
-    if (!dead) {
-      lo = warp_lower_bound(rrow, 0, n, lb + 1);
-      hi = warp_lower_bound(rrow, lo, n, ub);
-    }
-    if ((tid & 31) == 0) {
-      win[2 * r] = lo;
-      win[2 * r + 1] = hi;
-    }
-  }
-  __syncthreads();
-  const int a_lo = win[2 * k], a_hi = win[2 * k + 1];
-  if (tid == 0) {
-    int used = 0;
-    for (int r = 0; r < k; ++r) {
-      const int nb = win[2 * r + 1] - win[2 * r];
-      off[r] = (a_hi > a_lo && used + nb <= stage_keys) ? used : -1;
-      if (off[r] >= 0) used += nb;
-    }
-  }
-  __syncthreads();
-  for (int r = 0; r < k; ++r) {
-    if (off[r] < 0) continue;
-    const int* rrow = bs + (static_cast<size_t>(r) * rows + row) * cap_b + win[2 * r];
-    const int nb = win[2 * r + 1] - win[2 * r];
-    for (int i = tid; i < nb; i += blockDim.x) staged[off[r] + i] = rrow[i];
-  }
-  __syncthreads();
-
-  const int* __restrict__ erow =
-      n_excl ? excludes + static_cast<size_t>(row) * n_excl : nullptr;
-  int* __restrict__ mrow = mark + static_cast<size_t>(row) * cap_a;
-  int kept_here = 0;
-  for (int s = tid; s < cap_a; s += blockDim.x) {
-    int keep = 0;
-    if (s >= a_lo && s < a_hi) {
-      const int key = arow[s];
-      keep = 1;
-      for (int e = 0; e < n_excl && keep; ++e) keep = erow[e] != key;
-      for (int r = 0; r < k && keep; ++r) {
-        const int nb = win[2 * r + 1] - win[2 * r];
-        const int* rw = off[r] >= 0
-            ? staged + off[r]
-            : bs + (static_cast<size_t>(r) * rows + row) * cap_b + win[2 * r];
-        keep = contains(rw, nb, key) == (r < n_inter);
-      }
-    }
-    mrow[s] = keep;
-    kept_here += keep;
-  }
-  block_sum_to(kept_here, warp_sums, counts + row);
-}
-
-// ---------------------------------------------------------------------------
-// k-reference level with the SVPU value lane: repro_intersect_multi_agg and
-// repro_intersect_multi_agg_csr
-//
-// Contract: repro_intersect_multi's, plus values beside the keys of A and of
+//   repro_intersect_multi: a (B, cap_a), bs (k, B, cap_b); int32 mark and
+//     counts (the TPU kernel's contract);
+//   repro_intersect_multi_csr (general levels): reference r of row i is the
+//     neighbour list of vbs[r, i] cut at caps[r]; A is a padded (B, cap_a)
+//     matrix or the neighbours of va[i] cut at cap_a. Either counts and no
+//     mark (a count leaf), or a 1-byte mark and no counts (an expand level,
+//     whose base is padded rows: the compaction packs its keys).
+// Contract of mark: multi's with k = 1 and no excludes.
+//   repro_intersect_mark: the TPU kernel's INTER mark, int32;
+//   repro_intersect_mark_csr (SUB expand levels, and the fused_level=False
+//     and host-path masks): B's row from the CSR, INTER or SUB, a 1-byte
+//     mark over a padded A: keep = live ∧ lb < key < ub ∧ (key ∈ B) == INTER,
+//     so a SUB level's window is applied here, not in a pass after it.
+// Contract of multi-agg: multi's, plus values beside the keys of A and of
 // each reference (SUB refs' values are not read), scale (B,) f32 and op
 // (0 sum, 1 max, 2 min). Kept slot s of row i carries
 //   a_val[i,s] * v_0 * v_1 * ... * scale[i],
@@ -396,35 +301,72 @@ __global__ void intersect_multi_kernel(const int* __restrict__ a,
 // exactly comes out exact in any order.
 //   repro_intersect_multi_agg: a (B, cap_a), a_vals (B, cap_a), bs and
 //     b_vals (k, B, cap_b); writes mark (B, cap_a), counts and vals;
-//   repro_intersect_multi_agg_csr (the engine's aggregate leaf): reference
-//     r of row i is the neighbour list of vbs[r, i] cut at caps[r], its
-//     values edge_values beside it; A is a padded (B, cap_a) matrix with
-//     a_vals (NULL: every value 1.0, a carried base) or the neighbours of
-//     va[i] cut at cap_a with their edge values (a fresh base). It writes
-//     counts and vals and no mark: the leaf never reads one.
+//   repro_intersect_multi_agg_csr (the engine's aggregate leaf): references
+//     as multi_csr's, values edge_values beside them; A is a padded
+//     (B, cap_a) matrix with a_vals (NULL: every value 1.0, a carried base)
+//     or the neighbours of va[i] cut at cap_a with their edge values (a
+//     fresh base). It writes counts and vals and no mark: the leaf never
+//     reads one.
 //
-// Bound: bytes, as repro_intersect_multi's, plus the values beside the
-// window keys of A and of each INTER ref and the scale, read once, and 8
-// bytes a row of counts and vals written (plus the mark, where written).
+// Bound: bytes. The least read is the window keys of A and of each ref (a
+// key outside (lbound, bound) can neither be kept nor decide a kept key),
+// the bounds and the excludes, plus, with the value lane, the values beside
+// the window keys of A and of each INTER ref and the scale; the writes are
+// the mark (4 or 1 bytes a slot, where written), the counts and the vals.
+// Compare work is at most k binary searches per A window key.
 //
-// Design, as the count kernel's: a warp a row when every cap is at most
-// kWarpRowCap, else a block a row. A warp stages each reference's whole row
-// (keys, and values for INTER refs) by cp.async while it looks up the next
-// rows and A's window: a key inside A's window is in a row iff it is in the
-// row's window, so no reference window is searched. A block finds the ends
-// of every window at once (a warp an end) and stages the windows. Both
-// stage in order while the rows fit the staging budget: a quarter of what a
-// block may use on this card (the opt-in maximum, 227 KB on an H100),
-// shared among a block's rows; a row past it is read in device memory.
-// Each thread takes every team-th key of A's window (loading the next
-// key and value while it searches the current one) and binary-searches
-// each reference in turn, stopping at the first INTER miss or SUB hit; the
-// search gives the matched value's position. (A merge path against the
-// first reference, the count kernel's compare, measured slower here: the
-// value lane settles each key inside the merge with the warp diverged.)
+// Design. The TPU kernel streams each ref's B-tiles past a resident A-tile
+// and scores hits +1 (INTER) / -(k+1) (SUB), a tiling artifact; here each
+// key searches ref by ref and stops at the first INTER miss or SUB hit.
+// A warp a row when every cap is at most kWarpRowCap, else a block a row. A
+// warp stages each reference's whole row (keys, and values for INTER refs
+// with the value lane) by cp.async: a key inside (lbound, bound) is in a
+// row iff it is in the row's window, so no reference window is searched. A
+// block finds the ends of every window at once (a warp an end) and stages
+// the windows. Both stage in order while the rows fit the staging budget:
+// a quarter of what a block may use on this card (the opt-in maximum,
+// 227 KB on an H100), shared among a block's rows; a row past it is read in
+// device memory.
+// A warp finds A's window with the references' copies in flight.
+//   * mark and multi (no value lane): each thread takes every team-th group
+//     of four slots of A, the next group's loads issued under this group's
+//     searches, and searches the four keys in lockstep (a branch-free
+//     search whose steps depend on the row's length only: four independent
+//     loads a step where a key at a time waits on each; at the warp-a-row
+//     shape this halved the count's time). A mark's group is an aligned
+//     4-slot word of the padded row: one 16-byte load, and one store of its
+//     mark (4 bytes of a 1-byte mark, 16 of an int32 one), zeros outside
+//     A's window, so every store is full width and coalesced. A count's
+//     group is four consecutive keys of A's window, a CSR row's included.
+//     (Reading A's whole row in a warp, each key testing the window
+//     itself, took the window search off the row's chain but measured
+//     slower for the marks.) A block a row runs 128 threads.
+//   * the value lane (multi-agg): each thread takes every
+//     team-th key of A's window, loading the next key and value while it
+//     searches the current one, and binary-searches each reference in
+//     turn; the search gives the matched value's position. (A merge path
+//     against the first reference, the count kernel's compare, measured
+//     slower with the value lane: it settles each key inside the merge with
+//     the warp diverged.)
 // Partials reduce by warp shuffles, then across warps through shared
 // memory.
 constexpr float kF32Max = 3.4e38f;   // the JAX package's F32_MAX, in f32
+
+// Lanes of the level kernel: whether a kept key carries a value, and how
+// many references a row has (0: the caller's k). Each names its kernel's
+// wrapper in a profile's kernel symbols.
+struct AggLane {      // intersect_multi_agg
+  static constexpr bool kValues = true;
+  static constexpr int kRefs = 0;
+};
+struct MultiLane {    // intersect_multi
+  static constexpr bool kValues = false;
+  static constexpr int kRefs = 0;
+};
+struct MarkLane {     // intersect_mark
+  static constexpr bool kValues = false;
+  static constexpr int kRefs = 1;
+};
 
 __device__ __forceinline__ double agg_identity(int op) {
   return op == 0 ? 0.0 : (op == 1 ? -static_cast<double>(kF32Max)
@@ -468,15 +410,55 @@ struct RefWindows {
 // (stage_async's alignment slack, rounded to keep the next one aligned).
 __device__ __host__ __forceinline__ int stage_need(int n) { return (n + 6) & ~3; }
 
-template <bool kWarp, bool kMark, class ARows, class BRows>
-__global__ void multi_agg_kernel(ARows A, BRows Bs, const int* __restrict__ bounds,
-                                 const int* __restrict__ lbounds,
-                                 const int* __restrict__ excludes,
-                                 const float* __restrict__ scale,
-                                 int* __restrict__ mark, int* __restrict__ counts,
-                                 float* __restrict__ vals, int rows, int cap_a,
-                                 int k, int n_inter, int n_excl, int stage_words,
-                                 int op) {
+// Lower bounds of four keys in row[0, n), in lockstep: the steps depend on
+// n only, so the four searches' loads overlap and a warp never diverges.
+__device__ __forceinline__ void lower_bound4(const int* __restrict__ row, int n,
+                                             const int (&key)[4], int (&pos)[4]) {
+  int base[4] = {0, 0, 0, 0};
+  int len = n;
+  while (len > 1) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) base[j] = row[base[j] + half] < key[j] ? base[j] + half : base[j];
+    len -= half;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) pos[j] = base[j] + (len == 1 && row[base[j]] < key[j]);
+}
+
+// The keys of slots s0 .. s0 + 3 of a row (0 past [a_lo, a_hi)): one
+// 16-byte load of an aligned padded word (kWord, when it meets the
+// window), else four loads.
+template <bool kWord>
+__device__ __forceinline__ void load_group(const int* __restrict__ keys, int s0, int a_lo,
+                                           int a_hi, int (&key)[4]) {
+  if constexpr (kWord) {
+    const int4 q = s0 + 4 > a_lo && s0 < a_hi ? *reinterpret_cast<const int4*>(keys + s0)
+                                              : make_int4(0, 0, 0, 0);
+    key[0] = q.x;
+    key[1] = q.y;
+    key[2] = q.z;
+    key[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) key[j] = s0 + j < a_hi ? keys[s0 + j] : 0;
+  }
+}
+
+template <class Lane, bool kWarp, class MarkT, class ARows, class BRows>
+__global__ void level_kernel(ARows A, BRows Bs, const int* __restrict__ bounds,
+                             const int* __restrict__ lbounds,
+                             const int* __restrict__ excludes,
+                             const float* __restrict__ scale, MarkT* __restrict__ mark,
+                             int* __restrict__ counts, float* __restrict__ vals,
+                             int rows, int cap_a, int k_arg, int n_inter, int n_excl,
+                             int stage_words, int op) {
+  constexpr bool kValues = Lane::kValues;
+  constexpr bool kMark = !std::is_void<MarkT>::value;
+  // a mark without values is written a 4-slot word at a time from A's
+  // 16-byte aligned padded row
+  static_assert(kValues || !kMark || ARows::kPadded, "a word mark needs padded A rows");
+  const int k = Lane::kRefs ? Lane::kRefs : k_arg;
   extern __shared__ __align__(16) int smem[];
   __shared__ RefWindows wins_all[kWarp ? kRowWarps : 1];
   __shared__ int warp_sums[32];
@@ -506,12 +488,12 @@ __global__ void multi_agg_kernel(ARows A, BRows Bs, const int* __restrict__ boun
       for (int r = 0; r < kMaxRefs; ++r) {
         if (r >= k) break;
         const Row b = Bs.row(r, row);
-        const int need = stage_need(b.n) * (r < n_inter ? 2 : 1);
+        const int need = stage_need(b.n) * (kValues && r < n_inter ? 2 : 1);
         const int* kp = b.keys;
         const float* vp = b.vals;
         if (used + need <= stage_words) {
           kp = stage_async(slice + used, b.keys, b.n, lane, 32);
-          if (r < n_inter)
+          if (kValues && r < n_inter)
             vp = stage_async(reinterpret_cast<float*>(slice + used + stage_need(b.n)),
                              b.vals, b.n, lane, 32);
           used += need;
@@ -563,10 +545,10 @@ __global__ void multi_agg_kernel(ARows A, BRows Bs, const int* __restrict__ boun
         vp[r] = w.vals[r];
         const int nb = w.n[r] - w.src_lo[r];
         nbs[r] = nb;
-        const int need = stage_need(nb) * (r < n_inter ? 2 : 1);
+        const int need = stage_need(nb) * (kValues && r < n_inter ? 2 : 1);
         if (a_hi > a_lo && used + need <= stage_words) {
           kp[r] = stage_async(slice + used, kp[r], nb, rank, team);
-          if (r < n_inter)
+          if (kValues && r < n_inter)
             vp[r] = stage_async(reinterpret_cast<float*>(slice + used + stage_need(nb)),
                                 vp[r], nb, rank, team);
           used += need;
@@ -589,52 +571,110 @@ __global__ void multi_agg_kernel(ARows A, BRows Bs, const int* __restrict__ boun
 
   const int* __restrict__ erow =
       n_excl ? excludes + static_cast<size_t>(row) * n_excl : nullptr;
-  int* __restrict__ mrow = kMark ? mark + static_cast<size_t>(row) * cap_a : nullptr;
-  const float sc = scale[row];
   int kept_here = 0;
-  double acc = agg_identity(op);
-  // every thread takes every team-th key of A's window and searches each
-  // ref in turn, stopping at the first INTER miss or SUB hit; the next
-  // key's loads from device memory run under this key's search
-  int s = a_lo + rank;
-  int key_next = s < a_hi ? a.keys[s] : 0;
-  float v_next = s < a_hi && a.vals ? a.vals[s] : 1.0f;
-  for (; s < a_hi; s += team) {
-    const int key = key_next;
-    float v = v_next;
-    if (s + team < a_hi) {
-      key_next = a.keys[s + team];
-      if (a.vals) v_next = a.vals[s + team];
-    }
-    int keep = 1;
-    for (int e = 0; e < n_excl && keep; ++e) keep = erow[e] != key;
-    for (int r = 0; r < k && keep; ++r) {
-      const int nb = w.n[r];
-      const int* bk = w.keys[r];
-      const int p = lower_bound(bk, nb, key);
-      keep = (p < nb && bk[p] == key) == (r < n_inter);
-      if (keep && r < n_inter) v = __fmul_rn(v, w.vals[r][p]);
-    }
-    if (keep) acc = agg_combine(op, acc, static_cast<double>(__fmul_rn(v, sc)));
-    if constexpr (kMark) mrow[s] = keep;
-    kept_here += keep;
-  }
-  if constexpr (kMark) {
-    for (int s = rank; s < cap_a; s += team)
-      if (s < a_lo || s >= a_hi) mrow[s] = 0;
-  }
-  if constexpr (kWarp) {
-    for (int off = 16; off > 0; off >>= 1) {
-      kept_here += __shfl_down_sync(kFull, kept_here, off);
-      acc = agg_combine(op, acc, __shfl_down_sync(kFull, acc, off));
-    }
-    if (lane == 0) {
-      counts[row] = kept_here;
-      vals[row] = static_cast<float>(acc);
+  double acc = 0.0;
+  if constexpr (!kValues) {
+    // four slots a step, searched in lockstep: a mark's aligned 4-slot
+    // words over the whole row (zeros outside A's window), else four
+    // consecutive keys of the window
+    const int g_lo = kMark ? 0 : a_lo;
+    const int ngroups = ((kMark ? cap_a : a_hi) - g_lo + 3) >> 2;
+    int key_next[4];
+    load_group<kMark>(a.keys, g_lo + 4 * rank, a_lo, a_hi, key_next);
+    for (int g = rank; g < ngroups; g += team) {
+      const int s0 = g_lo + 4 * g;
+      int key[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) key[j] = key_next[j];
+      if (g + team < ngroups) load_group<kMark>(a.keys, s0 + 4 * team, a_lo, a_hi, key_next);
+      int keep[4];
+      int live = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        keep[j] = s0 + j >= a_lo && s0 + j < a_hi;
+        live |= keep[j];
+      }
+      for (int e = 0; e < n_excl && live; ++e) {
+        const int x = erow[e];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) keep[j] &= x != key[j];
+        live = keep[0] | keep[1] | keep[2] | keep[3];
+      }
+      for (int r = 0; r < k && live; ++r) {
+        const int nb = w.n[r];
+        const int* bk = w.keys[r];
+        int pos[4];
+        lower_bound4(bk, nb, key, pos);
+        live = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          keep[j] &= (pos[j] < nb && bk[pos[j]] == key[j]) == (r < n_inter);
+          live |= keep[j];
+        }
+      }
+      kept_here += keep[0] + keep[1] + keep[2] + keep[3];
+      if constexpr (kMark) {
+        MarkT* __restrict__ mrow = mark + static_cast<size_t>(row) * cap_a;
+        if constexpr (sizeof(MarkT) == 1) {
+          reinterpret_cast<unsigned*>(mrow)[g] = static_cast<unsigned>(keep[0])
+              | static_cast<unsigned>(keep[1]) << 8 | static_cast<unsigned>(keep[2]) << 16
+              | static_cast<unsigned>(keep[3]) << 24;
+        } else {
+          reinterpret_cast<int4*>(mrow)[g] = make_int4(keep[0], keep[1], keep[2], keep[3]);
+        }
+      }
     }
   } else {
-    block_sum_to(kept_here, warp_sums, counts + row);
-    block_agg_to(acc, op, warp_vals, vals + row);
+    // the value lane: every thread takes every team-th key of A's window
+    // and searches each ref in turn, stopping at the first INTER miss or
+    // SUB hit; the next key's loads from device memory run under this
+    // key's search
+    MarkT* __restrict__ mrow = nullptr;
+    if constexpr (kMark) mrow = mark + static_cast<size_t>(row) * cap_a;
+    const float sc = scale[row];
+    acc = agg_identity(op);
+    int s = a_lo + rank;
+    int key_next = s < a_hi ? a.keys[s] : 0;
+    float v_next = s < a_hi && a.vals ? a.vals[s] : 1.0f;
+    for (; s < a_hi; s += team) {
+      const int key = key_next;
+      float v = v_next;
+      if (s + team < a_hi) {
+        key_next = a.keys[s + team];
+        if (a.vals) v_next = a.vals[s + team];
+      }
+      int keep = 1;
+      for (int e = 0; e < n_excl && keep; ++e) keep = erow[e] != key;
+      for (int r = 0; r < k && keep; ++r) {
+        const int nb = w.n[r];
+        const int* bk = w.keys[r];
+        const int p = lower_bound(bk, nb, key);
+        keep = (p < nb && bk[p] == key) == (r < n_inter);
+        if (keep && r < n_inter) v = __fmul_rn(v, w.vals[r][p]);
+      }
+      if (keep) acc = agg_combine(op, acc, static_cast<double>(__fmul_rn(v, sc)));
+      if constexpr (kMark) mrow[s] = keep;
+      kept_here += keep;
+    }
+    if constexpr (kMark) {
+      for (int s = rank; s < cap_a; s += team)
+        if (s < a_lo || s >= a_hi) mrow[s] = 0;
+    }
+  }
+  if constexpr (kWarp) {
+    if (counts) {   // never NULL with the value lane
+      for (int off = 16; off > 0; off >>= 1) {
+        kept_here += __shfl_down_sync(kFull, kept_here, off);
+        if constexpr (kValues) acc = agg_combine(op, acc, __shfl_down_sync(kFull, acc, off));
+      }
+    }
+    if (lane == 0) {
+      if (counts) counts[row] = kept_here;
+      if constexpr (kValues) vals[row] = static_cast<float>(acc);
+    }
+  } else {
+    block_sum_to(kept_here, warp_sums, counts ? counts + row : nullptr);
+    if constexpr (kValues) block_agg_to(acc, op, warp_vals, vals + row);
   }
 }
 
@@ -652,53 +692,58 @@ int smem_optin_bytes() {
   return cached[dev];
 }
 
-template <bool kWarp, bool kMark, class ARows, class BRows>
-int launch_multi_agg_as(ARows A, BRows Bs, const int* bounds, const int* lbounds,
-                        const int* excludes, const float* scale, int* mark,
-                        int* counts, float* vals, int rows, int cap_a,
-                        const int* caps, int k, int n_inter, int n_excl, int op,
-                        cudaStream_t st) {
+template <class Lane, bool kWarp, class MarkT, class ARows, class BRows>
+int launch_level_as(ARows A, BRows Bs, const int* bounds, const int* lbounds,
+                    const int* excludes, const float* scale, MarkT* mark,
+                    int* counts, float* vals, int rows, int cap_a,
+                    const int* caps, int k, int n_inter, int n_excl, int op,
+                    cudaStream_t st) {
   // the staging budget: a quarter of the block maximum, shared by the rows
-  // of a block; each ref's row needs its cap's keys (and values if INTER)
+  // of a block; each ref's row needs its cap's keys (and values if INTER
+  // with the value lane)
   const int teams = kWarp ? kRowWarps : 1;
   int need = 0;
-  for (int r = 0; r < k; ++r) need += stage_need(caps[r]) * (r < n_inter ? 2 : 1);
+  for (int r = 0; r < k; ++r)
+    need += stage_need(caps[r]) * (Lane::kValues && r < n_inter ? 2 : 1);
   int budget = (smem_optin_bytes() / 4 / static_cast<int>(sizeof(int)) / teams) & ~3;
   const int stage_words = need < budget ? need : budget;
   const size_t bytes = static_cast<size_t>(teams) * stage_words * sizeof(int);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        multi_agg_kernel<kWarp, kMark, ARows, BRows>,
+        level_kernel<Lane, kWarp, MarkT, ARows, BRows>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int threads = kWarp ? 32 * kRowWarps : (cap_a >= 2048 ? 256 : 128);
+  // a block a row: 128 threads for mark and multi (measured faster than 256
+  // at cap 2048: more resident rows), 256 for the value lane at cap 2048
+  const int threads = kWarp ? 32 * kRowWarps
+                            : (Lane::kValues && cap_a >= 2048 ? 256 : 128);
   const int blocks = kWarp ? (rows + kRowWarps - 1) / kRowWarps : rows;
-  multi_agg_kernel<kWarp, kMark><<<blocks, threads, bytes, st>>>(
+  level_kernel<Lane, kWarp><<<blocks, threads, bytes, st>>>(
       A, Bs, bounds, lbounds, excludes, scale, mark, counts, vals, rows, cap_a, k,
       n_inter, n_excl, stage_words, op);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMark, class ARows, class BRows>
-int launch_multi_agg(ARows A, BRows Bs, const int* bounds, const int* lbounds,
-                     const int* excludes, const float* scale, int* mark,
-                     int* counts, float* vals, int rows, int cap_a,
-                     const int* caps, int k, int n_inter, int n_excl, int op,
-                     void* stream) {
-  if (k < 1 || k > kMaxRefs || n_inter < 0 || n_inter > k || n_excl < 0 ||
-      op < 0 || op > 2)
+template <class Lane, class MarkT, class ARows, class BRows>
+int launch_level(ARows A, BRows Bs, const int* bounds, const int* lbounds,
+                 const int* excludes, const float* scale, MarkT* mark,
+                 int* counts, float* vals, int rows, int cap_a,
+                 const int* caps, int k, int n_inter, int n_excl, int op,
+                 void* stream) {
+  if (k < 1 || k > kMaxRefs || (Lane::kRefs && k != Lane::kRefs) || n_inter < 0 ||
+      n_inter > k || n_excl < 0 || op < 0 || op > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   bool short_rows = cap_a <= kWarpRowCap;
   for (int r = 0; r < k; ++r) short_rows = short_rows && caps[r] <= kWarpRowCap;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (short_rows)
-    return launch_multi_agg_as<true, kMark>(A, Bs, bounds, lbounds, excludes, scale,
-                                            mark, counts, vals, rows, cap_a, caps,
-                                            k, n_inter, n_excl, op, st);
-  return launch_multi_agg_as<false, kMark>(A, Bs, bounds, lbounds, excludes, scale,
-                                           mark, counts, vals, rows, cap_a, caps, k,
-                                           n_inter, n_excl, op, st);
+    return launch_level_as<Lane, true>(A, Bs, bounds, lbounds, excludes, scale, mark,
+                                       counts, vals, rows, cap_a, caps, k, n_inter,
+                                       n_excl, op, st);
+  return launch_level_as<Lane, false>(A, Bs, bounds, lbounds, excludes, scale, mark,
+                                      counts, vals, rows, cap_a, caps, k, n_inter,
+                                      n_excl, op, st);
 }
 
 }  // namespace
@@ -707,41 +752,84 @@ extern "C" int repro_intersect_count(const int* a, const int* b,
                                      const int* bounds, const int* lbounds,
                                      int* counts, int rows, int cap_a,
                                      int cap_b, void* stream) {
-  return launch_count(PaddedRows{a, nullptr, rows, cap_a},
-                      PaddedRows{b, nullptr, rows, cap_b}, bounds, lbounds,
-                      counts, rows, cap_a, cap_b, stream);
+  return launch_count<false>(PaddedRows{a, nullptr, rows, cap_a},
+                             PaddedRows{b, nullptr, rows, cap_b}, bounds, lbounds,
+                             counts, rows, cap_a, cap_b, stream);
 }
+
+namespace {
 
 // B's row i: the neighbours of vb[i] cut at cap_b. A's row i: a's row
 // (a != NULL, (B, cap_a) padded) or the neighbours of va[i] cut at cap_a.
+template <bool kSub>
+int count_csr(const int* indptr, const int* indices, const int* a, const int* va,
+              const int* vb, const int* bounds, const int* lbounds, int* counts,
+              int rows, int cap_a, int cap_b, void* stream) {
+  const CsrRows B{indptr, indices, nullptr, vb, rows, {cap_b}};
+  if (a)
+    return launch_count<kSub>(PaddedRows{a, nullptr, rows, cap_a}, B, bounds, lbounds,
+                              counts, rows, cap_a, cap_b, stream);
+  return launch_count<kSub>(CsrRows{indptr, indices, nullptr, va, rows, {cap_a}}, B,
+                            bounds, lbounds, counts, rows, cap_a, cap_b, stream);
+}
+
+}  // namespace
+
 extern "C" int repro_intersect_count_csr(const int* indptr, const int* indices,
                                          const int* a, const int* va,
                                          const int* vb, const int* bounds,
                                          const int* lbounds, int* counts,
                                          int rows, int cap_a, int cap_b,
                                          void* stream) {
-  const CsrRows B{indptr, indices, nullptr, vb, rows, {cap_b}};
-  if (a)
-    return launch_count(PaddedRows{a, nullptr, rows, cap_a}, B, bounds, lbounds,
-                        counts, rows, cap_a, cap_b, stream);
-  return launch_count(CsrRows{indptr, indices, nullptr, va, rows, {cap_a}}, B,
-                      bounds, lbounds, counts, rows, cap_a, cap_b, stream);
+  return count_csr<false>(indptr, indices, a, va, vb, bounds, lbounds, counts, rows,
+                          cap_a, cap_b, stream);
+}
+
+// As repro_intersect_count_csr, counting the keys of A's window NOT in B.
+extern "C" int repro_intersect_sub_count_csr(const int* indptr, const int* indices,
+                                             const int* a, const int* va,
+                                             const int* vb, const int* bounds,
+                                             const int* lbounds, int* counts,
+                                             int rows, int cap_a, int cap_b,
+                                             void* stream) {
+  return count_csr<true>(indptr, indices, a, va, vb, bounds, lbounds, counts, rows,
+                         cap_a, cap_b, stream);
 }
 
 extern "C" int repro_intersect_expand(const int* a, const int* b,
                                       const int* bounds, const int* lbounds,
                                       int* mark, int* counts, int rows,
                                       int cap_a, int cap_b, void* stream) {
-  return launch<true, true>(a, b, bounds, lbounds, mark, counts, rows, cap_a,
-                            cap_b, stream);
+  const int threads = cap_a >= 2048 ? 256 : 128;
+  const int stage_keys = cap_b < kStageKeys ? cap_b : kStageKeys;
+  expand_kernel<<<rows, threads, stage_keys * sizeof(int),
+                  static_cast<cudaStream_t>(stream)>>>(a, b, bounds, lbounds, mark,
+                                                       counts, cap_a, cap_b, stage_keys);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int repro_intersect_mark(const int* a, const int* b,
                                     const int* bounds, const int* lbounds,
                                     int* mark, int rows, int cap_a, int cap_b,
                                     void* stream) {
-  return launch<true, false>(a, b, bounds, lbounds, mark, nullptr, rows, cap_a,
-                             cap_b, stream);
+  const int caps[kMaxRefs] = {cap_b};
+  return launch_level<MarkLane>(PaddedRows{a, nullptr, rows, cap_a},
+                                PaddedRows{b, nullptr, rows, cap_b}, bounds, lbounds,
+                                nullptr, nullptr, mark, nullptr, nullptr, rows, cap_a,
+                                caps, 1, 1, 0, 0, stream);
+}
+
+// a (B, cap_a) padded; B's row i the neighbours of vb[i] cut at cap_b; sub
+// 0 INTER, 1 SUB; mark (B, cap_a) 1-byte.
+extern "C" int repro_intersect_mark_csr(const int* indptr, const int* indices,
+                                        const int* a, const int* vb,
+                                        const int* bounds, const int* lbounds,
+                                        unsigned char* mark, int rows, int cap_a,
+                                        int cap_b, int sub, void* stream) {
+  const CsrRows B{indptr, indices, nullptr, vb, rows, {cap_b}};
+  return launch_level<MarkLane>(PaddedRows{a, nullptr, rows, cap_a}, B, bounds,
+                                lbounds, nullptr, nullptr, mark, nullptr, nullptr, rows,
+                                cap_a, B.caps, 1, sub ? 0 : 1, 0, 0, stream);
 }
 
 // bs (k, B, cap_b); excludes (B, n_excl) or NULL with n_excl == 0; k <= 8.
@@ -751,16 +839,39 @@ extern "C" int repro_intersect_multi(const int* a, const int* bs,
                                      int* counts, int rows, int cap_a,
                                      int cap_b, int k, int n_inter,
                                      int n_excl, void* stream) {
-  if (k < 1 || k > kMaxRefs || n_inter < 0 || n_inter > k || n_excl < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = cap_a >= 2048 ? 256 : 128;
-  const int total = k * cap_b;
-  const int stage_keys = total < kStageKeys ? total : kStageKeys;
-  intersect_multi_kernel<<<rows, threads, stage_keys * sizeof(int),
-                           static_cast<cudaStream_t>(stream)>>>(
-      a, bs, bounds, lbounds, excludes, mark, counts, rows, cap_a, cap_b, k,
-      n_inter, n_excl, stage_keys);
-  return static_cast<int>(cudaGetLastError());
+  const int caps[kMaxRefs] = {cap_b, cap_b, cap_b, cap_b, cap_b, cap_b, cap_b, cap_b};
+  return launch_level<MultiLane>(PaddedRows{a, nullptr, rows, cap_a},
+                                 PaddedRows{bs, nullptr, rows, cap_b}, bounds, lbounds,
+                                 excludes, nullptr, mark, counts, nullptr, rows, cap_a,
+                                 caps, k, n_inter, n_excl, 0, stream);
+}
+
+// General levels: reference r of row i is the neighbour list of
+// vbs[r * rows + i] cut at cap_r. With mark (1-byte, (B, cap_a)), A is the
+// padded a and no counts are written; else counts, A the padded a or, when
+// a is NULL, the neighbours of va[i] cut at cap_a.
+extern "C" int repro_intersect_multi_csr(
+    const int* indptr, const int* indices, const int* a, const int* va,
+    const int* vbs, const int* bounds, const int* lbounds, const int* excludes,
+    unsigned char* mark, int* counts, int rows, int cap_a, int k, int n_inter,
+    int n_excl, int cap0, int cap1, int cap2, int cap3, int cap4, int cap5,
+    int cap6, int cap7, void* stream) {
+  const CsrRows Bs{indptr, indices, nullptr, vbs, rows,
+                   {cap0, cap1, cap2, cap3, cap4, cap5, cap6, cap7}};
+  const PaddedRows A{a, nullptr, rows, cap_a};
+  if (mark)
+    return launch_level<MultiLane>(A, Bs, bounds, lbounds, excludes, nullptr, mark,
+                                   nullptr, nullptr, rows, cap_a, Bs.caps, k, n_inter,
+                                   n_excl, 0, stream);
+  void* none = nullptr;
+  if (a)
+    return launch_level<MultiLane>(A, Bs, bounds, lbounds, excludes, nullptr, none,
+                                   counts, nullptr, rows, cap_a, Bs.caps, k, n_inter,
+                                   n_excl, 0, stream);
+  return launch_level<MultiLane>(CsrRows{indptr, indices, nullptr, va, rows, {cap_a}},
+                                 Bs, bounds, lbounds, excludes, nullptr, none, counts,
+                                 nullptr, rows, cap_a, Bs.caps, k, n_inter, n_excl, 0,
+                                 stream);
 }
 
 // As repro_intersect_multi, plus a_vals (B, cap_a), b_vals (k, B, cap_b),
@@ -772,10 +883,10 @@ extern "C" int repro_intersect_multi_agg(
     int cap_a, int cap_b, int k, int n_inter, int n_excl, int op,
     void* stream) {
   const int caps[kMaxRefs] = {cap_b, cap_b, cap_b, cap_b, cap_b, cap_b, cap_b, cap_b};
-  return launch_multi_agg<true>(PaddedRows{a, a_vals, rows, cap_a},
-                                PaddedRows{bs, b_vals, rows, cap_b}, bounds,
-                                lbounds, excludes, scale, mark, counts, vals, rows,
-                                cap_a, caps, k, n_inter, n_excl, op, stream);
+  return launch_level<AggLane>(PaddedRows{a, a_vals, rows, cap_a},
+                               PaddedRows{bs, b_vals, rows, cap_b}, bounds, lbounds,
+                               excludes, scale, mark, counts, vals, rows, cap_a, caps, k,
+                               n_inter, n_excl, op, stream);
 }
 
 // The aggregate leaf: reference r of row i is the neighbour list of
@@ -791,13 +902,12 @@ extern "C" int repro_intersect_multi_agg_csr(
     int cap4, int cap5, int cap6, int cap7, void* stream) {
   const CsrRows Bs{indptr, indices, edge_values, vbs, rows,
                    {cap0, cap1, cap2, cap3, cap4, cap5, cap6, cap7}};
+  void* none = nullptr;
   if (a)
-    return launch_multi_agg<false>(PaddedRows{a, a_vals, rows, cap_a}, Bs, bounds,
-                                   lbounds, excludes, scale, nullptr, counts, vals,
-                                   rows, cap_a, Bs.caps, k, n_inter, n_excl, op,
-                                   stream);
-  return launch_multi_agg<false>(CsrRows{indptr, indices, edge_values, va, rows, {cap_a}},
-                                 Bs, bounds, lbounds, excludes, scale, nullptr, counts,
-                                 vals, rows, cap_a, Bs.caps, k, n_inter, n_excl, op,
-                                 stream);
+    return launch_level<AggLane>(PaddedRows{a, a_vals, rows, cap_a}, Bs, bounds,
+                                 lbounds, excludes, scale, none, counts, vals, rows,
+                                 cap_a, Bs.caps, k, n_inter, n_excl, op, stream);
+  return launch_level<AggLane>(CsrRows{indptr, indices, edge_values, va, rows, {cap_a}},
+                               Bs, bounds, lbounds, excludes, scale, none, counts, vals,
+                               rows, cap_a, Bs.caps, k, n_inter, n_excl, op, stream);
 }

@@ -12,12 +12,21 @@ kernels of ``repro/kernels/intersect.py`` on the mining main path:
   ``intersect_multi_agg`` <- ``intersect_multi_agg_pallas`` -> (mark, counts,
                                                            vals (B,) f32)
 
-Two more entries serve the engine's leaves with rows read straight from
-the graph's CSR (no gathered (B, cap) matrix in device memory), on the
+More entries serve the engine's levels with reference rows read straight
+from the graph's CSR (no gathered (B, cap) matrix in device memory), on the
 same device templates and launch counters as their padded-row forms:
 
   ``intersect_count_csr``      the count leaf: B's rows (and a fresh base's)
                                given as vertex ids            -> counts (B,)
+  ``intersect_sub_count_csr``  the SUB count leaf: the same, counting A's
+                               keys NOT in B; counts in ``intersect_mark``
+  ``intersect_mark_csr``       SUB expand levels and the per-reference masks:
+                               a padded base, B from the CSR, either
+                               polarity, the window inside -> bool (B, cap_a)
+  ``intersect_multi_csr``      the general count leaf: k references (and a
+                               fresh base) as vertex ids       -> counts (B,)
+  ``intersect_multi_mark_csr`` general expand levels: a padded base, the k
+                               references from the CSR      -> bool (B, cap_a)
   ``intersect_multi_agg_csr``  the aggregate leaf: the k references (and a
                                fresh base) as vertex ids, their values from
                                the CSR's value plane; no mark -> (counts, vals)
@@ -40,7 +49,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.batch import AGG_OPS, inter_keep, level_agg, level_keep
+from repro_torch.core.batch import (AGG_OPS, batch_sub_count, inter_keep, level_agg,
+                                    level_keep)
 from repro_torch.core.stream import LANE, SENTINEL
 from repro_torch.graph.csr import csr_rows
 
@@ -90,6 +100,17 @@ def intersect_count_csr_ref(indptr, indices, vb, cap_b, a=None, va=None, cap_a=N
     return intersect_count_ref(a, csr_rows(indptr, indices, vb, cap_b), bounds, lbounds)
 
 
+def _csr_stack(indptr, indices, vbs, caps_b, values=None) -> torch.Tensor:
+    """The (k, B, max cap) stack of the references' CSR rows, each gathered
+    at its cap and SENTINEL-padded to the widest (0.0-padded values, given
+    ``values``): the padded forms' ``bs`` (or ``b_vals``) operand."""
+    capmax = max(caps_b)
+    fill = SENTINEL if values is None else 0.0
+    return torch.stack([torch.nn.functional.pad(csr_rows(indptr, indices, vbs[r], c, values),
+                                                (0, capmax - c), value=fill)
+                        for r, c in enumerate(caps_b)])
+
+
 def intersect_multi_agg_csr_ref(indptr, indices, edge_values, vbs, caps_b, pol, scale,
                                 op="sum", a=None, va=None, cap_a=None, a_vals=None,
                                 bounds=None, lbounds=None, excludes=None):
@@ -97,12 +118,8 @@ def intersect_multi_agg_csr_ref(indptr, indices, edge_values, vbs, caps_b, pol, 
     keys and values gathered at its cap and SENTINEL / 0.0-padded to the
     widest, A's likewise (or 1.0 for a padded ``a`` without ``a_vals``),
     then ``intersect_multi_agg_ref`` without its mark -> (counts, vals)."""
-    capmax = max(caps_b)
-    pad = torch.nn.functional.pad
-    bs = torch.stack([pad(csr_rows(indptr, indices, vbs[r], c), (0, capmax - c),
-                          value=SENTINEL) for r, c in enumerate(caps_b)])
-    bv = torch.stack([pad(csr_rows(indptr, indices, vbs[r], c, edge_values),
-                          (0, capmax - c)) for r, c in enumerate(caps_b)])
+    bs = _csr_stack(indptr, indices, vbs, caps_b)
+    bv = _csr_stack(indptr, indices, vbs, caps_b, edge_values)
     if a is None:
         a = csr_rows(indptr, indices, va, cap_a)
         a_vals = csr_rows(indptr, indices, va, cap_a, edge_values)
@@ -111,6 +128,42 @@ def intersect_multi_agg_csr_ref(indptr, indices, edge_values, vbs, caps_b, pol, 
     _, counts, vals = intersect_multi_agg_ref(a, bs, pol, a_vals, bv, scale, op, bounds,
                                               lbounds, excludes)
     return counts, vals
+
+
+def intersect_sub_count_csr_ref(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
+                                bounds=None, lbounds=None) -> torch.Tensor:
+    """Plain torch version of ``intersect_sub_count_csr``: the rows gathered
+    as ``graph.csr.padded_rows`` gathers them, then the SUB count."""
+    if a is None:
+        a = csr_rows(indptr, indices, va, cap_a)
+    return batch_sub_count(a, csr_rows(indptr, indices, vb, cap_b), bounds, lbounds)
+
+
+def intersect_mark_csr_ref(indptr, indices, a, vb, cap_b, sub=False, bounds=None,
+                           lbounds=None) -> torch.Tensor:
+    """Plain torch version of ``intersect_mark_csr``: B's rows gathered,
+    then the keep mask of ``intersect_multi_ref`` with one reference."""
+    b = csr_rows(indptr, indices, vb, cap_b)
+    return level_keep(a, b[None], (0,) if sub else (1,), bounds, lbounds)
+
+
+def intersect_multi_csr_ref(indptr, indices, vbs, caps_b, pol, a=None, va=None,
+                            cap_a=None, bounds=None, lbounds=None,
+                            excludes=None) -> torch.Tensor:
+    """Plain torch version of ``intersect_multi_csr``: the references (and a
+    fresh base) gathered, then ``intersect_multi_ref``'s counts."""
+    if a is None:
+        a = csr_rows(indptr, indices, va, cap_a)
+    return intersect_multi_ref(a, _csr_stack(indptr, indices, vbs, caps_b), pol, bounds,
+                               lbounds, excludes)[1]
+
+
+def intersect_multi_mark_csr_ref(indptr, indices, a, vbs, caps_b, pol, bounds=None,
+                                 lbounds=None, excludes=None) -> torch.Tensor:
+    """Plain torch version of ``intersect_multi_mark_csr``: the references
+    gathered, then ``intersect_multi_ref``'s mark as bool."""
+    return level_keep(a, _csr_stack(indptr, indices, vbs, caps_b), pol, bounds, lbounds,
+                      excludes)
 
 
 def _check_rows(name: str, t: torch.Tensor, a: torch.Tensor, ndim: int = 2) -> None:
@@ -182,6 +235,56 @@ def _check_base(indptr, a, va, cap_a, rows: int) -> int:
     _check_tensor("va", va, (rows,), torch.int32, indptr.device)
     _check_cap("cap_a", cap_a)
     return cap_a
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """A mark kernel reads ``t``'s rows in 16-byte words."""
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _check_vertices(name: str, v: torch.Tensor, dev) -> int:
+    """(B,) int32 vertex ids on ``dev``; returns B."""
+    if v.dim() != 1:
+        raise ValueError(f"{name} must be (B,), got {tuple(v.shape)}")
+    _check_tensor(name, v, tuple(v.shape), torch.int32, dev)
+    return v.shape[0]
+
+
+def _check_refs(vbs, caps_b, pol, dev) -> tuple[int, int, tuple, tuple, int]:
+    """The k CSR references: (k, B) int32 ids ``vbs``, a positive cap each,
+    an INTER-first polarity. Returns (k, B, pol, caps_b, n_inter)."""
+    pol = tuple(pol)
+    caps_b = tuple(caps_b)
+    if vbs.dim() != 2:
+        raise ValueError(f"vbs must be (k, B), got {tuple(vbs.shape)}")
+    k, rows = vbs.shape
+    _check_tensor("vbs", vbs, (k, rows), torch.int32, dev)
+    if not 1 <= k == len(pol) == len(caps_b) <= MAX_REFS:
+        raise ValueError(f"vbs holds {k} refs, pol {pol}, caps_b {caps_b}: need "
+                         f"1 <= k == len(pol) == len(caps_b) <= {MAX_REFS}")
+    for c in caps_b:
+        _check_cap("caps_b", c)
+    n_inter = sum(pol)
+    if set(pol) - {0, 1} or pol != (1,) * n_inter + (0,) * (k - n_inter):
+        raise ValueError(f"pol {pol} must be 1s (INTER) then 0s (SUB)")
+    return k, rows, pol, caps_b, n_inter
+
+
+def _check_excludes(excludes, rows: int, dev) -> int:
+    """None or (rows, E) int32 on ``dev``; returns E."""
+    if excludes is None:
+        return 0
+    if excludes.dim() != 2:
+        raise ValueError(f"excludes must be (B, E), got {tuple(excludes.shape)}")
+    _check_tensor("excludes", excludes, (rows, excludes.shape[1]), torch.int32, dev)
+    return excludes.shape[1]
+
+
+def _check_marked_base(indptr, a, rows: int) -> None:
+    """The padded (rows, cap_a) base of a CSR mark form, on the CSR's device."""
+    _check_base(indptr, a, None, None, rows)
+    _check_aligned("a", a)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, bounds, lbounds) -> None:
@@ -257,24 +360,38 @@ def intersect_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
     must be vertices of the CSR (0 <= v < len(indptr) - 1): checking them
     would cost a read of the device. Launches count in
     ``intersect_count.launches``."""
+    return _count_csr(intersect_count, "repro_intersect_count_csr", intersect_count_csr_ref,
+                      indptr, indices, vb, cap_b, a, va, cap_a, bounds, lbounds)
+
+
+def _count_csr(counter, symbol: str, ref, indptr, indices, vb, cap_b, a, va, cap_a,
+               bounds, lbounds) -> torch.Tensor:
+    """The count leaves' CSR forms: check, then ``ref`` on the CPU or one
+    launch of ``symbol`` counted on ``counter``."""
     _check_csr(indptr, indices)
-    if vb.dim() != 1:
-        raise ValueError(f"vb must be (B,), got {tuple(vb.shape)}")
-    _check_tensor("vb", vb, tuple(vb.shape), torch.int32, indptr.device)
+    rows = _check_vertices("vb", vb, indptr.device)
     _check_cap("cap_b", cap_b)
-    rows = vb.shape[0]
     cap_a = _check_base(indptr, a, va, cap_a, rows)
     _check_bounds(indptr, bounds, lbounds, rows)
     if indptr.device.type == "cpu":
-        return intersect_count_csr_ref(indptr, indices, vb, cap_b, a, va, cap_a,
-                                       bounds, lbounds)
+        return ref(indptr, indices, vb, cap_b, a, va, cap_a, bounds, lbounds)
     counts = torch.empty(rows, dtype=torch.int32, device=indptr.device)
     if rows:
-        launch("intersect", "repro_intersect_count_csr", indptr.device,
-               (indptr, indices, a, va, vb, bounds, lbounds, counts),
-               (rows, cap_a, cap_b))
-        intersect_count.launches += 1
+        launch("intersect", symbol, indptr.device,
+               (indptr, indices, a, va, vb, bounds, lbounds, counts), (rows, cap_a, cap_b))
+        counter.launches += 1
     return counts
+
+
+def intersect_sub_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
+                            bounds=None, lbounds=None) -> torch.Tensor:
+    """The SUB count leaf (S_SUB.C): counts[i] = |{k ∈ A_i \\ B_i :
+    lbounds[i] < k < bounds[i]}|, rows as ``intersect_count_csr``'s. It
+    runs on the count kernel's template and replaces the mark launch of
+    the padded path, so launches count in ``intersect_mark.launches``."""
+    return _count_csr(intersect_mark, "repro_intersect_sub_count_csr",
+                      intersect_sub_count_csr_ref, indptr, indices, vb, cap_b, a, va,
+                      cap_a, bounds, lbounds)
 
 
 def intersect_expand(a, b, bounds=None, lbounds=None):
@@ -299,6 +416,7 @@ def intersect_mark(a, b, bounds=None, lbounds=None) -> torch.Tensor:
     """Bounded membership mark: mark[i, s] = 1 iff A_i[s] ∈ B_i and
     lbounds[i] < A_i[s] < bounds[i], else 0 — (B, cap_a) int32."""
     _check(a, b, bounds, lbounds)
+    _check_aligned("a", a)
     if a.device.type == "cpu":
         return intersect_mark_ref(a, b, bounds, lbounds)
     mark = torch.empty(a.shape, dtype=torch.int32, device=a.device)
@@ -310,6 +428,34 @@ def intersect_mark(a, b, bounds=None, lbounds=None) -> torch.Tensor:
 
 
 intersect_mark.launches = 0
+
+
+def intersect_mark_csr(indptr, indices, a, vb, cap_b, sub=False, bounds=None,
+                       lbounds=None) -> torch.Tensor:
+    """The keep row of one reference read from the CSR, over a padded base:
+    mark[i, s] = A_i[s] live, lbounds[i] < A_i[s] < bounds[i] and
+    (A_i[s] ∈ B_i) != sub -> (B, cap_a) bool.
+
+    ``a`` is (B, cap_a) padded rows (an expand level's base); B's row i is
+    the neighbour list of ``vb[i]`` cut at ``cap_b``, as in
+    ``intersect_count_csr``. ``sub=True`` is a SUB level's keep mask, its
+    window applied in the kernel; ``sub=False`` without bounds is the
+    membership mark a ``fused_level=False`` level ANDs per reference.
+    Launches count in ``intersect_mark.launches``."""
+    _check_csr(indptr, indices)
+    rows = _check_vertices("vb", vb, indptr.device)
+    _check_cap("cap_b", cap_b)
+    _check_marked_base(indptr, a, rows)
+    _check_bounds(indptr, bounds, lbounds, rows)
+    if indptr.device.type == "cpu":
+        return intersect_mark_csr_ref(indptr, indices, a, vb, cap_b, sub, bounds, lbounds)
+    mark = torch.empty(a.shape, dtype=torch.bool, device=a.device)
+    if rows:
+        launch("intersect", "repro_intersect_mark_csr", a.device,
+               (indptr, indices, a, vb, bounds, lbounds, mark),
+               (rows, a.shape[1], cap_b, int(bool(sub))))
+        intersect_mark.launches += 1
+    return mark
 
 
 def intersect_multi(a, bs, pol, bounds=None, lbounds=None, excludes=None):
@@ -326,6 +472,7 @@ def intersect_multi(a, bs, pol, bounds=None, lbounds=None, excludes=None):
     (B, E) int32 or None. Returns (mark (B, cap_a) int32, counts (B,) int32).
     """
     _check_multi(a, bs, pol, bounds, lbounds, excludes)
+    _check_aligned("a", a)
     if a.device.type == "cpu":
         return intersect_multi_ref(a, bs, pol, bounds, lbounds, excludes)
     mark = torch.empty(a.shape, dtype=torch.int32, device=a.device)
@@ -340,6 +487,61 @@ def intersect_multi(a, bs, pol, bounds=None, lbounds=None, excludes=None):
 
 
 intersect_multi.launches = 0
+
+
+def intersect_multi_csr(indptr, indices, vbs, caps_b, pol, a=None, va=None, cap_a=None,
+                        bounds=None, lbounds=None, excludes=None) -> torch.Tensor:
+    """The general count leaf: ``intersect_multi``'s counts with the
+    references read from a CSR and no mark written -> counts (B,) int32.
+
+    Reference r of row i is the neighbour list of ``vbs[r, i]`` cut at
+    ``caps_b[r]`` ((k, B) int32 ids, k = len(pol) = len(caps_b)); the base
+    is a padded (B, cap_a) ``a`` (a carried or gathered base) or the
+    neighbour list of ``va[i]`` cut at ``cap_a`` (a fresh base). Polarity,
+    bounds and excludes as ``intersect_multi``; ids as in
+    ``intersect_count_csr``. Launches count in ``intersect_multi.launches``."""
+    _check_csr(indptr, indices)
+    dev = indptr.device
+    k, rows, pol, caps_b, n_inter = _check_refs(vbs, caps_b, pol, dev)
+    cap_a = _check_base(indptr, a, va, cap_a, rows)
+    n_excl = _check_excludes(excludes, rows, dev)
+    _check_bounds(indptr, bounds, lbounds, rows)
+    if dev.type == "cpu":
+        return intersect_multi_csr_ref(indptr, indices, vbs, caps_b, pol, a, va, cap_a,
+                                       bounds, lbounds, excludes)
+    counts = torch.empty(rows, dtype=torch.int32, device=dev)
+    if rows:
+        launch("intersect", "repro_intersect_multi_csr", dev,
+               (indptr, indices, a, va, vbs, bounds, lbounds,
+                excludes if n_excl else None, None, counts),
+               (rows, cap_a, k, n_inter, n_excl, *caps_b, *(1,) * (MAX_REFS - k)))
+        intersect_multi.launches += 1
+    return counts
+
+
+def intersect_multi_mark_csr(indptr, indices, a, vbs, caps_b, pol, bounds=None,
+                             lbounds=None, excludes=None) -> torch.Tensor:
+    """A general expand level's keep row: ``intersect_multi``'s mark over a
+    padded (B, cap_a) base ``a``, the references read from a CSR as in
+    ``intersect_multi_csr`` -> (B, cap_a) bool (no counts: the compaction
+    counts). Launches count in ``intersect_multi.launches``."""
+    _check_csr(indptr, indices)
+    dev = indptr.device
+    k, rows, pol, caps_b, n_inter = _check_refs(vbs, caps_b, pol, dev)
+    _check_marked_base(indptr, a, rows)
+    n_excl = _check_excludes(excludes, rows, dev)
+    _check_bounds(indptr, bounds, lbounds, rows)
+    if dev.type == "cpu":
+        return intersect_multi_mark_csr_ref(indptr, indices, a, vbs, caps_b, pol, bounds,
+                                            lbounds, excludes)
+    mark = torch.empty(a.shape, dtype=torch.bool, device=dev)
+    if rows:
+        launch("intersect", "repro_intersect_multi_csr", dev,
+               (indptr, indices, a, None, vbs, bounds, lbounds,
+                excludes if n_excl else None, mark, None),
+               (rows, a.shape[1], k, n_inter, n_excl, *caps_b, *(1,) * (MAX_REFS - k)))
+        intersect_multi.launches += 1
+    return mark
 
 
 def intersect_multi_agg(a, bs, pol, a_vals, b_vals, scale, op="sum", bounds=None,
@@ -393,20 +595,7 @@ def intersect_multi_agg_csr(indptr, indices, edge_values, vbs, caps_b, pol, scal
     ``intersect_multi_agg.launches``."""
     _check_csr(indptr, indices, edge_values)
     dev = indptr.device
-    pol = tuple(pol)
-    caps_b = tuple(caps_b)
-    if vbs.dim() != 2:
-        raise ValueError(f"vbs must be (k, B), got {tuple(vbs.shape)}")
-    k, rows = vbs.shape
-    _check_tensor("vbs", vbs, (k, rows), torch.int32, dev)
-    if not 1 <= k == len(pol) == len(caps_b) <= MAX_REFS:
-        raise ValueError(f"vbs holds {k} refs, pol {pol}, caps_b {caps_b}: need "
-                         f"1 <= k == len(pol) == len(caps_b) <= {MAX_REFS}")
-    for c in caps_b:
-        _check_cap("caps_b", c)
-    n_inter = sum(pol)
-    if set(pol) - {0, 1} or pol != (1,) * n_inter + (0,) * (k - n_inter):
-        raise ValueError(f"pol {pol} must be 1s (INTER) then 0s (SUB)")
+    k, rows, pol, caps_b, n_inter = _check_refs(vbs, caps_b, pol, dev)
     cap_a = _check_base(indptr, a, va, cap_a, rows)
     if a_vals is not None:
         if a is None:
@@ -416,10 +605,7 @@ def intersect_multi_agg_csr(indptr, indices, edge_values, vbs, caps_b, pol, scal
     if op not in AGG_IDS:
         raise ValueError(f"unknown SVPU aggregate {op!r}; use one of {AGG_OPS}")
     _check_tensor("scale", scale, (rows,), torch.float32, dev)
-    if excludes is not None:
-        if excludes.dim() != 2:
-            raise ValueError(f"excludes must be (B, E), got {tuple(excludes.shape)}")
-        _check_tensor("excludes", excludes, (rows, excludes.shape[1]), torch.int32, dev)
+    n_excl = _check_excludes(excludes, rows, dev)
     _check_bounds(indptr, bounds, lbounds, rows)
     if dev.type == "cpu":
         return intersect_multi_agg_csr_ref(indptr, indices, edge_values, vbs, caps_b,
@@ -428,7 +614,6 @@ def intersect_multi_agg_csr(indptr, indices, edge_values, vbs, caps_b, pol, scal
     counts = torch.empty(rows, dtype=torch.int32, device=dev)
     vals = torch.empty(rows, dtype=torch.float32, device=dev)
     if rows:
-        n_excl = 0 if excludes is None else excludes.shape[1]
         launch("intersect", "repro_intersect_multi_agg_csr", dev,
                (indptr, indices, edge_values, a, a_vals, va, vbs, bounds, lbounds,
                 excludes if n_excl else None, scale, counts, vals),

@@ -15,8 +15,9 @@ from repro_torch.core.stream import SENTINEL
 from .bitmap import bitmap_and_count, keys_to_bitmap
 from .compact import compact_rows
 from .intersect import (intersect_count, intersect_count_csr, intersect_expand,
-                        intersect_mark, intersect_multi, intersect_multi_agg,
-                        intersect_multi_agg_csr)
+                        intersect_mark, intersect_mark_csr, intersect_multi,
+                        intersect_multi_agg, intersect_multi_agg_csr, intersect_multi_csr,
+                        intersect_multi_mark_csr, intersect_sub_count_csr)
 from .svinter import vinter
 
 
@@ -73,6 +74,13 @@ def xmark(a, b):
     return intersect_mark(a, b) > 0
 
 
+def xmark_csr(indptr, indices, a, vb, cap_b):
+    """``xmark`` with B's rows read from the CSR (vertex ids ``vb`` at
+    ``cap_b``) over padded base rows ``a``: the mask a ``fused_level=False``
+    or host-path level ANDs per reference."""
+    return intersect_mark_csr(indptr, indices, a, vb, cap_b)
+
+
 def _sub_window(a, bounds, lbounds):
     """The complement's value window (lbound, bound) as a keep mask.
 
@@ -98,6 +106,15 @@ def xsub_count(a, b, bounds=None, lbounds=None):
     return _sub_kernel_keep(a, b, bounds, lbounds).sum(dim=1, dtype=torch.int32)
 
 
+def xsub_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
+                   bounds=None, lbounds=None):
+    """``xsub_count`` with B's rows, and a fresh base's, read from the CSR
+    (a carried base as padded rows ``a``): the SUB count leaf, one launch of
+    the count kernel's SUB form and no mark."""
+    return intersect_sub_count_csr(indptr, indices, vb, cap_b, a, va, cap_a, bounds,
+                                   lbounds)
+
+
 def xsub_compact(a, b, bounds=None, out_cap: int | None = None,
                  out_items: int | None = None, lbounds=None):
     """Fused bounded S_SUB + worklist compaction — ``xinter_compact``'s twin
@@ -106,6 +123,17 @@ def xsub_compact(a, b, bounds=None, out_cap: int | None = None,
     cap = out_cap or a.shape[1]
     items = out_items or a.shape[0] * cap
     return batch_compact_scan(a, _sub_kernel_keep(a, b, bounds, lbounds), cap, items)
+
+
+def xsub_compact_csr(indptr, indices, a, vb, cap_b, bounds=None, out_cap: int | None = None,
+                     out_items: int | None = None, lbounds=None):
+    """``xsub_compact`` with B's rows read from the CSR (vertex ids ``vb`` at
+    ``cap_b``) over padded base rows ``a``: the mark kernel applies the
+    window and writes the keep row as bool, the scan compacts it."""
+    cap = out_cap or a.shape[1]
+    items = out_items or a.shape[0] * cap
+    keep = intersect_mark_csr(indptr, indices, a, vb, cap_b, True, bounds, lbounds)
+    return batch_compact_scan(a, keep, cap, items)
 
 
 def xlevel_count(a, bs, pol, bounds=None, lbounds=None, excludes=None):
@@ -137,6 +165,28 @@ def xlevel_compact(a, bs, pol, bounds=None, out_cap: int | None = None,
                                    cap, items)
     mark, _ = intersect_multi(a, bs, pol, bounds, lbounds, excludes)
     return batch_compact_scan(a, mark > 0, cap, items)
+
+
+def xlevel_count_csr(indptr, indices, vbs, caps_b, pol, a=None, va=None, cap_a=None,
+                     bounds=None, lbounds=None, excludes=None):
+    """``xlevel_count`` for k >= 1 references read from the CSR (the (k, B)
+    ids ``vbs`` at ``caps_b``), the base as padded rows ``a`` or CSR rows of
+    ``va`` at ``cap_a``: one launch of the k-reference kernel, no mark."""
+    return intersect_multi_csr(indptr, indices, vbs, caps_b, pol, a, va, cap_a, bounds,
+                               lbounds, excludes)
+
+
+def xlevel_compact_csr(indptr, indices, a, vbs, caps_b, pol, bounds=None,
+                       out_cap: int | None = None, out_items: int | None = None,
+                       lbounds=None, excludes=None):
+    """``xlevel_compact`` for k >= 1 references read from the CSR over
+    padded base rows ``a``: the k-reference kernel's bool keep row, then
+    ``batch_compact_scan``."""
+    cap = out_cap or a.shape[1]
+    items = out_items or a.shape[0] * cap
+    keep = intersect_multi_mark_csr(indptr, indices, a, vbs, caps_b, pol, bounds, lbounds,
+                                    excludes)
+    return batch_compact_scan(a, keep, cap, items)
 
 
 def xlevel_agg(a, bs, pol, a_vals, b_vals, scale, op: str = "sum", bounds=None,

@@ -22,12 +22,20 @@ once per run. Padded tail items carry bound 0, so they contribute nothing.
 A level runs in one of three shapes, as in the reference engine:
 
   'inter'  one INTER reference: the count / expand kernels
-  'sub'    one SUB reference (an induced non-edge): the mark kernel, run
-           unbounded, with the bound window applied outside it
+  'sub'    one SUB reference (an induced non-edge): the count kernel's SUB
+           form on a count leaf, the mark kernel (the window inside it) on
+           an expand level
   general  k INTER/SUB references and injectivity excludes: the
            k-reference kernel (``fused_level``), or with
            ``fused_level=False`` one mark launch per reference ANDed into
            the keep mask; a window-only level (k = 0) launches nothing
+
+Every kernel reads a level's reference rows straight from the CSR (vertex
+ids and caps), as it reads a count leaf's fresh base. Padded rows are
+gathered (``graph.csr.padded_rows``) only for what still takes them: an
+expand level's fresh base, which the compaction packs, the reference of an
+INTER expand level (the expand kernel), and the base of a window-only or
+``fused_level=False`` level.
 
 An aggregate leaf (a weighted query, ``plan.compile_pattern(aggregate=)``)
 replaces the count leaf: one launch of the value-lane kernel
@@ -68,8 +76,9 @@ from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
 from repro_torch.kernels.compact import compact_rows
 from repro_torch.kernels.ops import (xinter_compact, xinter_count_csr, xlevel_agg,
-                                     xlevel_agg_csr, xlevel_compact, xlevel_count,
-                                     xmark, xsub_compact, xsub_count)
+                                     xlevel_agg_csr, xlevel_compact, xlevel_compact_csr,
+                                     xlevel_count, xlevel_count_csr, xmark_csr,
+                                     xsub_compact_csr, xsub_count_csr)
 from repro_torch.obs import LegacyStatsView, Telemetry
 from repro_torch.values import edge_value_lookup, prefix_scale
 
@@ -380,15 +389,15 @@ class WaveRunner:
 
     def _mask_ops(self, op: LevelOp, caps: dict):
         """The ``fused_level=False`` general path: AND one membership mark
-        per INTER/SUB reference (one mark launch each) with the bound,
-        injectivity, residual and live masks."""
+        per INTER/SUB reference (one mark launch each, the reference read
+        from the CSR) with the bound, injectivity, residual and live masks."""
 
         def keep_of(g, base, get, n):
             keep = base != SENTINEL
             for j in op.inter:
-                keep = keep & xmark(base, padded_rows(g, get[j], caps[j])[0])
+                keep = keep & xmark_csr(g.indptr, g.indices, base, get[j], caps[j])
             for j in op.sub:
-                keep = keep & ~xmark(base, padded_rows(g, get[j], caps[j])[0])
+                keep = keep & ~xmark_csr(g.indptr, g.indices, base, get[j], caps[j])
             if op.ub:
                 keep = keep & (base < self._min_ub(op, get)[:, None])
             if op.lb:
@@ -401,21 +410,6 @@ class WaveRunner:
             live = torch.arange(base.shape[0], device=base.device) < n
             return keep & live[:, None]
         return keep_of
-
-    @staticmethod
-    def _stack_refs(g, get, caps: dict, refs: tuple[int, ...]) -> torch.Tensor:
-        """Gather the k reference neighbour streams into the k-reference
-        kernel's (k, B, cap) operand; refs gathered at smaller degree
-        buckets are SENTINEL-padded to the widest (rows stay sorted)."""
-        capmax = max(caps[j] for j in refs)
-        rows = []
-        for j in refs:
-            r, _ = padded_rows(g, get[j], caps[j])
-            if caps[j] < capmax:
-                r = torch.nn.functional.pad(r, (0, capmax - caps[j]),
-                                            value=SENTINEL)
-            rows.append(r)
-        return torch.stack(rows)
 
     @staticmethod
     def _excl_vals(op: LevelOp, get):
@@ -441,29 +435,32 @@ class WaveRunner:
 
         def fn(g, vals, carry, n):
             get = dict(zip(in_cols, vals))
-            if fused == "inter":
-                # rows straight from the CSR: the reference always, the base
-                # unless it is the carried survivor stream
+            if fused or (use_xlevel and refs):
+                # rows straight from the CSR: the references always, the
+                # base unless it is the carried survivor stream
                 base_kw = dict(a=carry) if op.use_carry else \
                     dict(va=get[op.base], cap_a=caps[op.base])
                 nrows = carry.shape[0] if op.use_carry else get[op.base].shape[0]
                 ub = self._ub_vec(op, get, n, nrows)
                 lb = self._max_lb(op, get) if op.lb else None
-                ref = op.inter[0]
-                counts = xinter_count_csr(g.indptr, g.indices, get[ref], caps[ref],
-                                          **base_kw, bounds=ub, lbounds=lb)
+                if fused:
+                    ref = refs[0]
+                    xcount = xinter_count_csr if fused == "inter" else xsub_count_csr
+                    counts = xcount(g.indptr, g.indices, get[ref], caps[ref], **base_kw,
+                                    bounds=ub, lbounds=lb)
+                else:
+                    counts = xlevel_count_csr(g.indptr, g.indices,
+                                              torch.stack([get[j] for j in refs]),
+                                              [caps[j] for j in refs], pol, **base_kw,
+                                              bounds=ub, lbounds=lb,
+                                              excludes=self._excl_vals(op, get))
                 return self._count_total(op, g, get, counts)
             base = self._base(op, g, get, carry, caps)
-            if fused:
+            if use_xlevel:
+                # a window-only level (k = 0): the plain form, no kernel
                 ub = self._ub_vec(op, get, n, base.shape[0])
                 lb = self._max_lb(op, get) if op.lb else None
-                nbr, _ = padded_rows(g, get[op.sub[0]], caps[op.sub[0]])
-                counts = xsub_count(base, nbr, ub, lbounds=lb)
-            elif use_xlevel:
-                ub = self._ub_vec(op, get, n, base.shape[0])
-                lb = self._max_lb(op, get) if op.lb else None
-                bs = self._stack_refs(g, get, caps, refs) if refs else None
-                counts = xlevel_count(base, bs, pol, ub, lbounds=lb,
+                counts = xlevel_count(base, None, pol, ub, lbounds=lb,
                                       excludes=self._excl_vals(op, get))
             else:
                 counts = keep_of(g, base, get, n).sum(dim=1, dtype=torch.int32)
@@ -554,10 +551,11 @@ class WaveRunner:
                        out_items: int):
         """Survivors -> compacted items in one ``x*_compact``: a fused
         'inter'/'sub' level or a general level through the k-reference
-        kernel, where the per-row bound vector (``_ub_vec``) folds the upper
-        bounds, the live mask and any residuals into the bound operand and
-        lower bounds ride ``lbounds``; with ``fused_level=False`` a general
-        level composes one mark per reference. Every path ends in the
+        kernel (references read from the CSR but an INTER level's), where
+        the per-row bound vector (``_ub_vec``) folds the upper bounds, the
+        live mask and any residuals into the bound operand and lower bounds
+        ride ``lbounds``; with ``fused_level=False`` a general level
+        composes one mark per reference. Every path ends in the
         ``batch_compact_scan`` prefix-sum scatter."""
         fused = self._fused_shape(op)
         keep_of = self._mask_ops(op, caps)
@@ -566,23 +564,29 @@ class WaveRunner:
         use_xlevel = fused is None and self.fused_level
 
         def core(g, get, base, n):
-            if fused:
-                ub = self._ub_vec(op, get, n, base.shape[0])
-                lb = self._max_lb(op, get) if op.lb else None
-                ref = op.inter[0] if fused == "inter" else op.sub[0]
-                nbr, _ = padded_rows(g, get[ref], caps[ref])
-                cfun = xinter_compact if fused == "inter" else xsub_compact
-                return cfun(base, nbr, ub, out_cap=out_cap,
-                            out_items=out_items, lbounds=lb)
-            if use_xlevel:
-                ub = self._ub_vec(op, get, n, base.shape[0])
-                lb = self._max_lb(op, get) if op.lb else None
-                bs = self._stack_refs(g, get, caps, refs) if refs else None
-                return xlevel_compact(base, bs, pol, ub, out_cap=out_cap,
-                                      out_items=out_items, lbounds=lb,
-                                      excludes=self._excl_vals(op, get))
-            return batch_compact_scan(base, keep_of(g, base, get, n), out_cap,
-                                      out_items)
+            if not (fused or use_xlevel):
+                return batch_compact_scan(base, keep_of(g, base, get, n), out_cap,
+                                          out_items)
+            ub = self._ub_vec(op, get, n, base.shape[0])
+            lb = self._max_lb(op, get) if op.lb else None
+            if fused == "inter":
+                # the expand kernel still takes its reference as padded rows
+                nbr, _ = padded_rows(g, get[refs[0]], caps[refs[0]])
+                return xinter_compact(base, nbr, ub, out_cap=out_cap,
+                                      out_items=out_items, lbounds=lb)
+            if fused == "sub":
+                return xsub_compact_csr(g.indptr, g.indices, base, get[refs[0]],
+                                        caps[refs[0]], ub, out_cap=out_cap,
+                                        out_items=out_items, lbounds=lb)
+            if refs:
+                return xlevel_compact_csr(g.indptr, g.indices, base,
+                                          torch.stack([get[j] for j in refs]),
+                                          [caps[j] for j in refs], pol, ub,
+                                          out_cap=out_cap, out_items=out_items,
+                                          lbounds=lb, excludes=self._excl_vals(op, get))
+            return xlevel_compact(base, None, pol, ub, out_cap=out_cap,
+                                  out_items=out_items, lbounds=lb,
+                                  excludes=self._excl_vals(op, get))
         return core
 
     def _plan_expand_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int,

@@ -402,6 +402,88 @@ def test_multi_agg_csr_kernel_equals_plain_version(cuda, B, cap_a, cap_b, cut, p
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("B,cap_a,cap_b,cut", CSR_SHAPES)
+def test_sub_count_and_mark_csr_kernels_equal_plain_versions(cuda, B, cap_a, cap_b, cut):
+    """The SUB count leaf (a CSR and a padded base) and the INTER and SUB
+    marks over a padded base, B from the CSR: bit for bit, bounds set,
+    partly set and None; each one launch on intersect_mark's counter."""
+    c = _csr_case(cuda, B, cap_a, cap_b, 1, B + cap_a + 3 * cut)
+    ca, cb = cap_a // cut, cap_b // cut
+    a_cut = c["a"][:, :ca].contiguous()
+    csr = (c["indptr"], c["indices"])
+    for bd, lbd in ((c["bounds"], c["lbounds"]), (c["bounds"], None), (None, None)):
+        for kw in (dict(va=c["va"], cap_a=ca), dict(a=a_cut)):
+            n = K.intersect_mark.launches
+            got = K.intersect_sub_count_csr(*csr, c["vbs"][0], cb, **kw, bounds=bd,
+                                            lbounds=lbd)
+            torch.cuda.synchronize()
+            assert K.intersect_mark.launches == n + 1
+            assert torch.equal(got, K.intersect_sub_count_csr_ref(
+                *csr, c["vbs"][0], cb, **kw, bounds=bd, lbounds=lbd))
+        for sub in (False, True):
+            n = K.intersect_mark.launches
+            got = K.intersect_mark_csr(*csr, a_cut, c["vbs"][0], cb, sub, bd, lbd)
+            torch.cuda.synchronize()
+            assert K.intersect_mark.launches == n + 1 and got.dtype == torch.bool
+            assert torch.equal(got, K.intersect_mark_csr_ref(*csr, a_cut, c["vbs"][0], cb,
+                                                             sub, bd, lbd))
+
+
+@pytest.mark.parametrize("pol", POLS)
+@pytest.mark.parametrize("B,cap_a,cap_b,cut", CSR_SHAPES)
+def test_multi_csr_kernels_equal_plain_versions(cuda, B, cap_a, cap_b, cut, pol):
+    """The general count leaf (a CSR and a padded base) and the general
+    expand mark (a padded base), odd references at half the cap, with and
+    without bounds and excludes: bit for bit, one launch a call on
+    intersect_multi's counter."""
+    c = _csr_case(cuda, B, cap_a, cap_b, len(pol), B + cap_b + 7 * len(pol))
+    ca, cb = cap_a // cut, cap_b // cut
+    caps = tuple(cb if r % 2 == 0 else max(1, cb // 2) for r in range(len(pol)))
+    a_cut = c["a"][:, :ca].contiguous()
+    csr = (c["indptr"], c["indices"], c["vbs"], caps, pol)
+    for bd, lbd, ex in ((c["bounds"], c["lbounds"], c["excl"]), (None, None, None)):
+        for kw in (dict(va=c["va"], cap_a=ca), dict(a=a_cut)):
+            n = K.intersect_multi.launches
+            got = K.intersect_multi_csr(*csr, **kw, bounds=bd, lbounds=lbd, excludes=ex)
+            torch.cuda.synchronize()
+            assert K.intersect_multi.launches == n + 1
+            assert torch.equal(got, K.intersect_multi_csr_ref(*csr, **kw, bounds=bd,
+                                                              lbounds=lbd, excludes=ex))
+        n = K.intersect_multi.launches
+        args = (c["indptr"], c["indices"], a_cut, c["vbs"], caps, pol, bd, lbd, ex)
+        got = K.intersect_multi_mark_csr(*args)
+        torch.cuda.synchronize()
+        assert K.intersect_multi.launches == n + 1 and got.dtype == torch.bool
+        assert torch.equal(got, K.intersect_multi_mark_csr_ref(*args))
+
+
+def test_level_csr_forms_refuse_an_unaligned_base(cuda):
+    """The marks read the base 16 bytes at a time: a view starting off a
+    16-byte boundary raises before any launch."""
+    c = _csr_case(cuda, 8, 128, 128, 1, 0)
+    a = torch.full((8 * 128 + 1,), SENTINEL, dtype=torch.int32, device=cuda)[1:].view(8, 128)
+    with pytest.raises(ValueError):
+        K.intersect_mark_csr(c["indptr"], c["indices"], a, c["vbs"][0], 128)
+    with pytest.raises(ValueError):
+        K.intersect_multi_mark_csr(c["indptr"], c["indices"], a, c["vbs"], (128,), (1,))
+
+
+def test_sub_and_general_levels_on_card_gather_no_reference_rows(cuda, monkeypatch):
+    """On the card, three-chain-induced gathers no padded rows and paw only
+    its level-2 expand's fresh base and INTER reference; the CPU's counts."""
+    from repro_torch.mining import engine
+    g = get_dataset("email-eu-core", 0.25)
+    want = {q: Miner(g, device="cpu").count(q) for q in ("three-chain-induced", "paw")}
+    calls = []
+    gather = engine.padded_rows
+    monkeypatch.setattr(engine, "padded_rows",
+                        lambda *a, **kw: calls.append(1) or gather(*a, **kw))
+    m = Miner(g)
+    assert m.count("three-chain-induced") == want["three-chain-induced"] and not calls
+    assert m.count("paw") == want["paw"]
+    assert len(calls) == 2 * m.runner.level_execs[("expand", 2)]
+
+
 def test_leaves_on_card_gather_no_padded_rows(cuda, monkeypatch):
     """The triangle's count leaf and weighted triangle's aggregate leaf read
     their rows from the CSR on the card: no padded_rows gather, the CPU's
