@@ -24,19 +24,21 @@ exception exits non-zero:
               batch_inter
   4. csr      the CSR-operand forms (the count and aggregate leaves; the SUB
               count leaf, the SUB and per-reference marks, the general count
-              leaf and general expand marks) on a synthetic CSR of the same
-              rows, against their plain versions: warp-a-row and block-a-row
-              caps, rows past shared memory, rows cut at their cap, empty
-              rows, the last vertex, unaligned row starts, bound-0 rows, every
-              polarity, E = 2 excludes; timed as in parity
+              leaf and general expand marks; the INTER expand level's packed
+              rows and its items pass) on a synthetic CSR of the same rows,
+              against their plain versions: warp-a-row and block-a-row caps,
+              rows past shared memory, rows cut at their cap, empty rows, the
+              last vertex, unaligned row starts, bound-0 rows, every
+              polarity, E = 2 excludes, a fresh and a carried base; timed as
+              in parity
   5. main     repro_torch.Miner counts triangles, cliques, three-chains and
               the 4-motifs on mico, youtube, wiki-vote and email-eu-core at
               the sizes below, and 4-cycle once more with fused_level=False;
               each count must equal the JAX package's (mico's three-chains
               also the closed form); each query's padded-row gathers are
-              printed: none for a triangle or three-chain-induced, and the
-              level-2 expand's fresh base (plus an INTER level's reference)
-              alone for the other SUB and general queries
+              printed: none for a triangle, the cliques, three-chain-induced,
+              diamond and paw, and the level-2 expand's fresh base alone for
+              4-cycle, 4-path and 4-star
   6. weighted Miner.aggregate (sum, max, min) on the same graphs with
               dyadic edge weights: each value must equal the JAX package's
               (bit for bit where f32 holds every partial sum, else within
@@ -193,6 +195,10 @@ CSR_AGG_TRIANGLE = (2048, 1024, 1, 1024)
 # MULTI_TIMED (a block a row) and at this warp-a-row shape, the path's usual
 # bucket
 CSR_LEVEL_WARP = (2048, 1024, 2, 1024)
+# the INTER expand level's CSR form and items pass: CSR_SHAPES, and A's
+# window past shared memory; timed at TIMED_SHAPE and this warp-a-row shape
+EXPAND_SHAPES = CSR_SHAPES + ((128, 32768, 2048, 1),)
+EXPAND_WARP = (2048, 1024, 1024)
 # compact-rows: (B, cap, out_cap) x keep densities; (4096, 256, 64) cuts rows
 COMPACT_SHAPES = (((2048, 2048, 2048), (0.05, 0.3, 1.0)), ((2048, 128, 128), (0.3,)),
                   ((4096, 256, 64), (0.3, 1.0)))
@@ -231,6 +237,10 @@ KERNELS = {
     "intersect_expand": dict(route="cuda",
                              source="src/repro_torch/kernels/csrc/intersect.cu",
                              replaces="src/repro/kernels/intersect.py:214"),
+    # the INTER expand level's worklist: what the JAX package leaves to XLA's
+    # scatter in batch_compact_scan (no Pallas kernel)
+    "expand_items": dict(route="cuda", source="src/repro_torch/kernels/csrc/intersect.cu",
+                         replaces="src/repro/core/batch.py:104"),
     "intersect_mark": dict(route="cuda",
                            source="src/repro_torch/kernels/csrc/intersect.cu",
                            replaces="src/repro/kernels/intersect.py:250"),
@@ -250,7 +260,8 @@ KERNELS = {
 # the count path's kernels (phase 4); the weighted path (5) drives
 # intersect_multi_agg, the sparse path (6) vinter, the host path (8)
 # compact_rows and the bitmap path (9) bitmap_and_count
-COUNT_KERNELS = ("intersect_count", "intersect_expand", "intersect_mark", "intersect_multi")
+COUNT_KERNELS = ("intersect_count", "intersect_expand", "expand_items", "intersect_mark",
+                 "intersect_multi")
 
 
 def wrappers() -> dict:
@@ -742,18 +753,23 @@ def _parity_agg_csr(K, report, gen, B, cap_a, k, cap_b, cut):
                                          csr_plain_ms=plain_ms, csr_bound_ms=bound_ms)
 
 
-def _check_level_form(K, report, name: str, label: str, run, want, launches: int) -> None:
-    """One call of a SUB or general level's CSR form: bit for bit against
-    its plain version's ``want``, one launch on ``name``'s counter."""
+def _check_level_form(K, report, name: str, label: str, run, want, launches: int):
+    """One call of a CSR form: its output (a tensor or a tuple of them) bit
+    for bit against its plain version's ``want``, ``launches`` launches on
+    ``name``'s counter. Returns the output."""
     counter = getattr(K, name)
     n0 = counter.launches
     got = run()
     launched = counter.launches - n0
     torch.cuda.synchronize()
-    err = (got.int() - want.int()).abs().max().item() if got.numel() else 0
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    err = max((g.long() - w.long()).abs().max().item() if g.numel() else 0
+              for g, w in pairs)
     _record(report, name, err)
-    if got.dtype != want.dtype or not torch.equal(got, want) or launched != launches:
+    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs) \
+            or launched != launches:
         raise SystemExit(f"[csr] MISMATCH {label}: max err {err}, {launched} launches")
+    return got
 
 
 def _time_level_form(K, report, name: str, key: str, label: str, run, plain, bound) -> None:
@@ -866,6 +882,80 @@ def _parity_level_csr(K, report, gen, B, cap_a, k, cap_b, cut):
         _time_level_form(K, report, name, f"{key}_{form}", label, run, plain, bound)
 
 
+def _parity_expand_csr(K, report, gen, B, cap_a, cap_b, cut):
+    """The INTER expand level's CSR form at one shape, a CSR and a padded
+    (carried) base, bounds set and None, out_cap at min(cap_a, cap_b) and
+    above it; then the items pass on its rows at the engine's out_items and
+    below the total: bit for bit against the plain versions, one launch a
+    call each; timed at TIMED_SHAPE (a block a row) and EXPAND_WARP."""
+    span = 2 * cap_b
+    a, b = sorted_rows(gen, B, cap_a, span), sorted_rows(gen, B, cap_b, span)
+    bounds, lbounds = bound_vectors(gen, B, span)
+    indptr, indices, _, (va, vb) = csr_of([a, b])
+    ca, cb = cap_a // cut, cap_b // cut
+    csr = (indptr, indices, vb, cb)
+    bases = {"csr": dict(va=va, cap_a=ca), "padded": dict(a=a[:, :ca].contiguous())}
+    shape = f"B={B} caps=({ca},{cb})"
+    totals = []
+    for bd, lbd in ((bounds, lbounds), (None, None)):
+        bk = dict(bounds=bd, lbounds=lbd)
+        tag = f"bounds={'set' if bd is not None else 'None'}"
+        for base, kw in bases.items():
+            for out_cap in (min(ca, cb), max(ca, cb) + 128):
+                rows, counts = _check_level_form(
+                    K, report, "intersect_expand",
+                    f"expand_csr {shape} out_cap={out_cap} {base} {tag}",
+                    lambda: K.intersect_expand_csr(*csr, out_cap, **kw, **bk),
+                    K.intersect_expand_csr_ref(*csr, out_cap, **kw, **bk), 1)
+            offs = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+            total = int(counts.sum())
+            totals.append(total)
+            for items in (B * min(ca, cb), max(1, total // 2)):
+                _check_level_form(K, report, "expand_items",
+                                  f"items {shape} out_items={items} {base} {tag}",
+                                  lambda: K.expand_items(rows, counts, offs, items),
+                                  K.expand_items_ref(rows, counts, offs, items), 1)
+    deg = indptr[1:] - indptr[:-1]
+    print(f"[csr] expand_csr and expand_items {shape} from rows of ({cap_a},{cap_b}): "
+          f"CSR and padded base x bounds x 2 out_caps, items at B x out_cap and half the "
+          f"total: equal bit for bit; survivors {totals}; "
+          f"{int((deg[:B] > ca).sum() + (deg[B:] > cb).sum())} rows cut, "
+          f"{int((deg == 0).sum())} empty, {int((indptr[:-1] % 4 != 0).sum())} starts off "
+          f"16 bytes, {int((bounds == 0).sum())} bound-0 rows", flush=True)
+    if (B, cap_a, cap_b) not in (TIMED_SHAPE, EXPAND_WARP) or cut != 1:
+        return
+    key = "csr" if (B, cap_a, cap_b) == TIMED_SHAPE else "csr_warp"
+    out_cap = min(cap_a, cap_b)
+    kw = dict(va=va, cap_a=cap_a, bounds=bounds, lbounds=lbounds)
+    csr = (indptr, indices, vb, cap_b)
+    a_live = _window_keys(a, bounds, lbounds)
+    live = a_live + _window_keys(b, bounds, lbounds)
+    _time_level_form(K, report, "intersect_expand", key,
+                     f"expand_csr B={B} caps=({cap_a},{cap_b}) CSR base, packed rows",
+                     lambda: K.intersect_expand_csr(*csr, out_cap, **kw),
+                     lambda: K.intersect_expand_csr_ref(*csr, out_cap, **kw),
+                     _bound(B, cap_b, live, a_live, 1, B * 4 + B * out_cap * 4))
+    rows, counts = K.intersect_expand_csr(*csr, out_cap, **kw)
+    offs = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    items = B * out_cap
+    total = int(counts.sum())
+    args = (rows, counts, offs, items)
+    times = kernel_times(lambda: K.expand_items(*args))
+    plain_ms = cuda_ms(lambda: K.expand_items_ref(*args))
+    # the survivors, counts and offs read; src and verts written in full
+    bound_ms, by = _bytes_bound(total * 4 + B * 8 + items * 8)
+    print(f"[csr] expand_items B={B} out_cap={out_cap} out_items={items} total={total}: "
+          f"{_times_text(times)}, {plain_ms:.4f} ms plain (batch_compact_scan), bound "
+          f"{bound_ms:.4f} ms", flush=True)
+    if key == "csr":
+        # no one PyTorch call writes both src and verts
+        report["expand_items"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=by, library_ms=None)
+    else:
+        report["expand_items"].update({f"warp_{n}": v for n, v in times.items()},
+                                      warp_plain_ms=plain_ms, warp_bound_ms=bound_ms)
+
+
 def phase_csr(report: dict) -> None:
     """The CSR-operand forms against their plain versions, and their times
     at the timed shapes."""
@@ -877,6 +967,8 @@ def phase_csr(report: dict) -> None:
         _parity_agg_csr(K, report, gen, *shape)
     for shape in CSR_AGG_SHAPES:
         _parity_level_csr(K, report, gen, *shape)
+    for shape in EXPAND_SHAPES:
+        _parity_expand_csr(K, report, gen, *shape)
 
 
 def _vinter_bound(ak, bk, rows: int) -> tuple[float, str]:
@@ -1138,12 +1230,11 @@ def count_gathers(run):
 
 
 # queries whose every level reads its rows from the CSR: no padded gathers
-GATHER_FREE = ("triangle", "three-chain-induced")
-# padded-row gathers per call of the level-2 expand of the queries with SUB
-# or general levels: its fresh base, plus the reference of an INTER expand
-# level (the expand kernel's operand); no count leaf, SUB or general
-# reference gathers
-LEVEL2_GATHERS = {"diamond": 2, "paw": 2, "4-cycle": 1, "4-path": 1, "4-star": 1}
+GATHER_FREE = ("triangle", "4-clique", "5-clique", "three-chain-induced", "diamond", "paw")
+# padded-row gathers per call of the level-2 expand of the queries whose
+# level 2 is a SUB or general level: its fresh base; no count leaf, INTER
+# expand level, SUB or general reference gathers
+LEVEL2_GATHERS = {"4-cycle": 1, "4-path": 1, "4-star": 1}
 
 
 def phase_main_path(graphs: dict):
@@ -1514,12 +1605,13 @@ def phase_bitmap(graphs: dict) -> dict:
 KERNEL_OWNERS = (
     (r"level_kernel<[^,]*MarkLane", "intersect_mark"),
     (r"level_kernel<[^,]*MultiLane", "intersect_multi"),
-    (r"level_kernel<[^,]*AggLane|multi_agg_kernel<", "intersect_multi_agg"),
+    (r"level_kernel<[^,]*AggLane", "intersect_multi_agg"),
     (r"count_kernel<true, (true|false),", "intersect_mark"),
     (r"count_kernel<", "intersect_count"),
-    (r"expand_kernel|intersect_rows_kernel<true, true>", "intersect_expand"),
-    (r"intersect_rows_kernel<true, false>", "intersect_mark"),
-    (r"intersect_multi_kernel", "intersect_multi"),
+    # this tree's expand_kernel<kPack, kWarp, ...> and the parent's
+    # one-block-a-row expand_kernel(...)
+    (r"expand_kernel[<(]", "intersect_expand"),
+    (r"expand_items_kernel", "expand_items"),
     (r"vinter_kernel", "vinter"),
     (r"compact_rows_kernel", "compact_rows"),
     (r"bitmap_and_count_kernel", "bitmap_and_count"),

@@ -5,7 +5,12 @@
 //   repro_intersect_count_csr (_count_kernel): counts (B,); the _csr entry
 //                             reads its rows straight from the CSR
 //   repro_intersect_expand <- repro/kernels/intersect.py:intersect_expand_pallas
-//                             (_expand_kernel): mark (B, cap_a) and counts (B,)
+//   repro_intersect_expand_csr (_expand_kernel): mark (B, cap_a) and counts
+//                             (B,); the _csr entry (the engine's INTER expand
+//                             level) reads B's row, and a fresh base's, from
+//                             the CSR and writes the survivors front-packed
+//                             instead of a mark; repro_expand_items turns
+//                             those rows into the level's worklist
 //   repro_intersect_mark   <- repro/kernels/intersect.py:intersect_mark_pallas
 //   repro_intersect_mark_csr  (_mark_kernel): mark (B, cap_a); the _csr entry
 //   repro_intersect_sub_count_csr  (the SUB levels) takes B's row from the
@@ -35,20 +40,12 @@
 // at most B*(cap_a+cap_b)*4 bytes of rows, and at least the keys inside each
 // row's (lbound, bound) window, plus 8 bytes of bounds per row; it writes
 // 4 bytes per row of counts and/or B*cap_a*4 of mark (B*cap_a of a 1-byte
-// mark); all at 3.35 TB/s. The compare work is ~log2(cap_b) integer
-// operations per A key, far below the card's integer rate.
+// mark; B*out_cap*4 of packed rows); all at 3.35 TB/s. The compare work is
+// ~log2(cap_b) integer operations per A key, far below the card's integer
+// rate.
 //
-// Design of expand (the first version, one block a row):
-//   * warp 0 finds B's window of keys inside (lbound, bound) and warp 1
-//     A's window, each by a 32-way warp-cooperative search. Slots outside
-//     the window are never searched (the TPU schedule's whole-tile skip);
-//   * B's window is staged in shared memory when it fits kStageKeys (32 KB),
-//     else searched in global memory (the degree buckets reach 32768 keys);
-//   * threads stride over A's window and binary-search the staged window,
-//     writing the mark row in full (0 outside A's window);
-//   * a warp-shuffle plus shared-memory block reduction gives the count.
-// The count kernel's and the level kernel's (mark, multi, multi-agg)
-// designs are described where they are defined.
+// The designs (count, expand, and the level template of mark, multi and
+// multi-agg) are described where each is defined.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,61 +74,6 @@ __device__ __forceinline__ void block_sum_to(int v, int* warp_sums, int* out) {
     if (tid == 0 && out) *out = w;
   }
 }
-
-__global__ void expand_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                              const int* __restrict__ bounds,
-                              const int* __restrict__ lbounds, int* __restrict__ mark,
-                              int* __restrict__ counts, int cap_a, int cap_b,
-                              int stage_keys) {
-  extern __shared__ int staged[];
-  __shared__ int win[4];          // a_lo, a_hi, b_lo, b_hi
-  __shared__ int warp_sums[32];
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int* __restrict__ arow = a + static_cast<size_t>(row) * cap_a;
-  const int* __restrict__ brow = b + static_cast<size_t>(row) * cap_b;
-  const int ub = bounds ? bounds[row] : kSentinel;
-  const int lb = lbounds ? lbounds[row] : -1;
-  // keys are in (lb, ub) and ub <= SENTINEL, so SENTINEL never qualifies
-  const bool dead = static_cast<long long>(ub) <= static_cast<long long>(lb) + 1;
-
-  if (warp < 2) {
-    int lo = 0, hi = 0;
-    if (!dead) {
-      const int* r = warp == 0 ? brow : arow;
-      const int n = warp == 0 ? cap_b : cap_a;
-      lo = warp_lower_bound(r, 0, n, lb + 1);
-      hi = warp_lower_bound(r, lo, n, ub);
-    }
-    if ((tid & 31) == 0) {
-      win[warp == 0 ? 2 : 0] = lo;
-      win[warp == 0 ? 3 : 1] = hi;
-    }
-  }
-  __syncthreads();
-  const int a_lo = win[0], a_hi = win[1], b_lo = win[2];
-  const int nb = win[1] > win[0] ? win[3] - b_lo : 0;
-
-  const bool stage = nb <= stage_keys;
-  if (stage) {
-    for (int i = tid; i < nb; i += blockDim.x) staged[i] = brow[b_lo + i];
-  }
-  __syncthreads();
-  const int* __restrict__ bw = stage ? staged : brow + b_lo;
-
-  int hits = 0;
-  int* __restrict__ mrow = mark + static_cast<size_t>(row) * cap_a;
-  for (int s = tid; s < cap_a; s += blockDim.x) {
-    int hit = 0;
-    if (s >= a_lo && s < a_hi) hit = contains(bw, nb, arow[s]);
-    mrow[s] = hit;
-    hits += hit;
-  }
-  block_sum_to(hits, warp_sums, counts + row);
-}
-
 
 // ---------------------------------------------------------------------------
 // repro_intersect_count, repro_intersect_count_csr and (kSub)
@@ -746,6 +688,258 @@ int launch_level(ARows A, BRows Bs, const int* bounds, const int* lbounds,
                                       n_excl, op, st);
 }
 
+
+// ---------------------------------------------------------------------------
+// repro_intersect_expand, repro_intersect_expand_csr and repro_expand_items:
+// the INTER expand level.
+//
+// Contract of expand: count's, plus the level's survivors.
+//   repro_intersect_expand (the TPU kernel's contract): a (B, cap_a) and b
+//     (B, cap_b) padded; mark (B, cap_a) int32, 1 on kept slots, and counts.
+//   repro_intersect_expand_csr (the engine's INTER expand level): B's row i
+//     the neighbours of vb[i] cut at cap_b; A's row a padded (B, cap_a) a (a
+//     carried base) or the neighbours of va[i] cut at cap_a (a fresh base).
+//     rows (B, out_cap) int32: row i's kept keys in order, front-packed,
+//     SENTINEL after, cut at out_cap; counts (B,) not cut. No mark is
+//     written: batch_compact_rows(a, mark, out_cap) is what it computes.
+//   repro_expand_items: the level's worklist from those rows. With offs the
+//     exclusive prefix sum of counts and no row cut (counts[i] <= out_cap),
+//     item offs[i] + j is (src i, vert rows[i, j]) for j < counts[i], and
+//     every item from the total on is (0, 0); items past out_items drop.
+//     This is core/batch.py:batch_compact_scan's (src, verts) on the same
+//     survivors (the JAX package leaves it to XLA's scatter; it is no
+//     Pallas kernel).
+//
+// Bound: bytes. Expand reads count's least bytes and writes the counts plus
+// the mark (B*cap_a*4) or the packed rows (B*out_cap*4); the items pass
+// reads the live keys, counts and offs and writes out_items*8 bytes.
+//
+// Design of expand, on the count kernel's and the level template's parts:
+//   * caps at most kWarpRowCap run a warp a row, kRowWarps rows a block; a
+//     longer row a 128-thread block, whose four warps find the four window
+//     ends at once. A warp stages B's whole row (and the CSR form A's) by
+//     cp.async and finds the windows in shared memory; a block stages the
+//     windows while they fit kStageKeys / 2 each (the mark form B's alone,
+//     up to kStageKeys), else reads them in device memory (youtube's
+//     buckets reach 32768 keys);
+//   * each thread takes four keys a step and searches B's window for them
+//     in lockstep (lower_bound4: branch-free, steps that depend on the
+//     window's length only);
+//   * the mark form takes the padded row's aligned 4-slot words (one
+//     16-byte load, one 16-byte store of the mark, zeros outside A's
+//     window), as the level template's marks do;
+//   * the CSR form takes four consecutive keys of A's window from shared
+//     memory (a CSR row starts on any 4-byte boundary, so no aligned word
+//     exists in device memory). A step's keep flags become positions by
+//     ballots (team_pack_offsets: the lower lanes', across warps the lower
+//     warps', plus the row's running count), and the kept keys are stored
+//     straight into rows; the tail gets SENTINEL. The (B, cap_a) mark never
+//     reaches device memory.
+// The items pass runs a warp a row (its count's keys, coalesced) and, in
+// the blocks after the rows, the zero tail from the total to out_items.
+constexpr int kExpandThreads = 128;   // a block a row
+
+template <bool kPack, bool kWarp, class ARows, class BRows>
+__global__ void expand_kernel(ARows A, BRows B, const int* __restrict__ bounds,
+                              const int* __restrict__ lbounds, int* __restrict__ out,
+                              int* __restrict__ counts, int rows, int cap_a, int out_cap,
+                              int stage_a, int stage_b) {
+  // the mark form reads A's padded row in aligned 16-byte words
+  static_assert(kPack || ARows::kPadded, "a word mark needs padded A rows");
+  extern __shared__ __align__(16) int smem[];
+  __shared__ int win[4];                                // a block a row: window ends
+  __shared__ int warp_kept[2][kExpandThreads / 32];     // a block a row: pack offsets
+  __shared__ int warp_sums[32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = kWarp ? blockIdx.x * kRowWarps + warp : blockIdx.x;
+  if (kWarp && row >= rows) return;   // a whole warp; no block barrier follows
+  const int rank = kWarp ? lane : static_cast<int>(threadIdx.x);
+  const int team = kWarp ? 32 : static_cast<int>(blockDim.x);
+  const int ub = bounds ? bounds[row] : kSentinel;
+  const int lb = lbounds ? lbounds[row] : -1;
+  // keys are in (lb, ub) and ub <= SENTINEL, so SENTINEL never qualifies
+  const bool dead = static_cast<long long>(ub) <= static_cast<long long>(lb) + 1;
+  Row a{}, b{};
+  if (!dead) {
+    a = A.row(0, row);
+    b = B.row(0, row);
+  }
+  // A's window [a_lo, a_hi) of its row; ap: the CSR form's window keys
+  // (staged or in device memory); bp, nb: B's window
+  int a_lo = 0, a_hi = 0, nb = 0;
+  const int* ap = nullptr;
+  const int* bp = nullptr;
+  if constexpr (kWarp) {
+    if (!dead) {
+      int* slice = smem + warp * (stage_a + stage_b + 8);
+      const int* bk = stage_async(slice + stage_a + 4, b.keys, b.n, lane, 32);
+      const int* ak = kPack ? stage_async(slice, a.keys, a.n, lane, 32) : a.keys;
+      int2 aw = make_int2(0, 0);
+      if constexpr (!kPack) aw = warp_window<ARows::kPadded>(ak, a.n, lb, ub);  // under the copy
+      async_wait_all();
+      __syncwarp();
+      if constexpr (kPack) aw = warp_window<ARows::kPadded>(ak, a.n, lb, ub);
+      const int2 bw = warp_window<BRows::kPadded>(bk, b.n, lb, ub);
+      a_lo = aw.x;
+      a_hi = aw.y;
+      ap = ak + a_lo;
+      bp = bk + bw.x;
+      nb = bw.y - bw.x;
+    }
+  } else {
+    if (!dead && warp < 4) {
+      const int end = warp < 2
+          ? warp_window_end<ARows::kPadded>(a.keys, a.n, lb, ub, warp == 1)
+          : warp_window_end<BRows::kPadded>(b.keys, b.n, lb, ub, warp == 3);
+      if (lane == 0) win[warp] = end;
+    }
+    __syncthreads();
+    // lb + 1 < ub on a live row, so each window's lower end <= its upper
+    // (a dead row never writes win: its ends are not read)
+    if (!dead) {
+      a_lo = win[0];
+      a_hi = win[1];
+      nb = win[3] - win[2];
+      ap = a.keys + a_lo;
+      bp = b.keys + win[2];
+    }
+    const int na = a_hi - a_lo;
+    const bool stage_a_win = kPack && na > 0 && nb > 0 && na <= stage_a;
+    const bool stage_b_win = na > 0 && nb > 0 && nb <= stage_b;
+    if (stage_a_win) stage_async(smem, ap, na, threadIdx.x, blockDim.x);
+    if (stage_b_win) stage_async(smem + stage_a + 4, bp, nb, threadIdx.x, blockDim.x);
+    if (stage_a_win || stage_b_win) async_wait_all();
+    __syncthreads();
+    if (stage_a_win) ap = smem + ((reinterpret_cast<uintptr_t>(ap) >> 2) & 3);
+    if (stage_b_win) bp = smem + stage_a + 4 + ((reinterpret_cast<uintptr_t>(bp) >> 2) & 3);
+  }
+
+  if constexpr (kPack) {
+    // an empty B window keeps nothing: the row is its tail alone
+    const int na = nb > 0 ? a_hi - a_lo : 0;
+    int* __restrict__ orow = out + static_cast<size_t>(row) * out_cap;
+    int kept = 0;                        // the row's survivors so far, the team's
+    for (int g0 = 0, step = 0; 4 * g0 < na; g0 += team, ++step) {
+      const int s0 = 4 * (g0 + rank);
+      int key[4], pos[4], keep[4];
+      load_group<false>(ap, s0, 0, na, key);
+      lower_bound4(bp, nb, key, pos);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        keep[j] = s0 + j < na && pos[j] < nb && bp[pos[j]] == key[j];
+      const int2 off = team_pack_offsets<kWarp>(keep, warp_kept[step & 1]);
+      int p = kept + off.x;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (keep[j]) {
+          if (p < out_cap) orow[p] = key[j];
+          ++p;
+        }
+      }
+      kept += off.y;
+    }
+    for (int s = (kept < out_cap ? kept : out_cap) + rank; s < out_cap; s += team)
+      orow[s] = kSentinel;
+    if (rank == 0) counts[row] = kept;
+  } else {
+    // the int32 mark over the padded row's aligned 4-slot words, zeros
+    // outside A's window; the next word's load under this word's search
+    int* __restrict__ mrow = out + static_cast<size_t>(row) * cap_a;
+    const int ngroups = cap_a >> 2;
+    int hits = 0;
+    int key_next[4];
+    load_group<true>(a.keys, 4 * rank, a_lo, a_hi, key_next);
+    for (int g = rank; g < ngroups; g += team) {
+      const int s0 = 4 * g;
+      int key[4], pos[4], keep[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) key[j] = key_next[j];
+      if (g + team < ngroups) load_group<true>(a.keys, s0 + 4 * team, a_lo, a_hi, key_next);
+      int live = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        keep[j] = s0 + j >= a_lo && s0 + j < a_hi;
+        live |= keep[j];
+      }
+      if (live) {
+        lower_bound4(bp, nb, key, pos);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) keep[j] &= pos[j] < nb && bp[pos[j]] == key[j];
+      }
+      reinterpret_cast<int4*>(mrow)[g] = make_int4(keep[0], keep[1], keep[2], keep[3]);
+      hits += keep[0] + keep[1] + keep[2] + keep[3];
+    }
+    if constexpr (kWarp) {
+      for (int off = 16; off > 0; off >>= 1) hits += __shfl_down_sync(kFull, hits, off);
+      if (lane == 0) counts[row] = hits;
+    } else {
+      block_sum_to(hits, warp_sums, counts + row);
+    }
+  }
+}
+
+template <bool kPack, class ARows, class BRows>
+int launch_expand(ARows A, BRows B, const int* bounds, const int* lbounds, int* out,
+                  int* counts, int rows, int cap_a, int cap_b, int out_cap,
+                  void* stream) {
+  if (rows < 0 || cap_a < 1 || cap_b < 1 || out_cap < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the mark form searches A's window in device memory: only B is staged
+  const int sa = kPack ? (cap_a + 3) & ~3 : 0, sb = (cap_b + 3) & ~3;
+  if (cap_a <= kWarpRowCap && cap_b <= kWarpRowCap) {
+    expand_kernel<kPack, true><<<(rows + kRowWarps - 1) / kRowWarps, 32 * kRowWarps,
+                                 kRowWarps * (sa + sb + 8) * sizeof(int), st>>>(
+        A, B, bounds, lbounds, out, counts, rows, cap_a, out_cap, sa, sb);
+  } else {
+    const int half = kPack ? kStageKeys / 2 : kStageKeys;
+    const int stage_a = sa < half ? sa : half, stage_b = sb < half ? sb : half;
+    expand_kernel<kPack, false><<<rows, kExpandThreads,
+                                  (stage_a + stage_b + 8) * sizeof(int), st>>>(
+        A, B, bounds, lbounds, out, counts, rows, cap_a, out_cap, stage_a, stage_b);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kItemThreads = 256;
+constexpr int kItemTailBlocks = 1056;  // eight a streaming multiprocessor, at most
+
+__global__ void __launch_bounds__(kItemThreads)
+expand_items_kernel(const int* __restrict__ rows2, const int* __restrict__ counts,
+                    const int* __restrict__ offs, int* __restrict__ src,
+                    int* __restrict__ verts, int batch, int out_cap, int out_items,
+                    int row_blocks) {
+  if (static_cast<int>(blockIdx.x) < row_blocks) {
+    const int i = blockIdx.x * (kItemThreads / 32) + (threadIdx.x >> 5);
+    if (i >= batch) return;
+    const int n = counts[i] < out_cap ? counts[i] : out_cap;
+    const int o = offs[i];
+    const int* __restrict__ r = rows2 + static_cast<size_t>(i) * out_cap;
+    for (int j = threadIdx.x & 31; j < n && o + j < out_items; j += 32) {
+      verts[o + j] = r[j];
+      src[o + j] = i;
+    }
+    return;
+  }
+  // the zero tail [total, out_items): words up to the first multiple of
+  // four and past the last one, 16-byte stores between (src and verts
+  // start on 16-byte boundaries)
+  const int total = batch ? offs[batch - 1] + counts[batch - 1] : 0;
+  const int t = (blockIdx.x - row_blocks) * kItemThreads + threadIdx.x;
+  const int stride = (gridDim.x - row_blocks) * kItemThreads;
+  const int head_end = min((total + 3) & ~3, out_items);
+  const int body_end = max(out_items & ~3, head_end);
+  for (int p = total + t; p < head_end; p += stride) src[p] = verts[p] = 0;
+  for (int p = body_end + t; p < out_items; p += stride) src[p] = verts[p] = 0;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int q = head_end / 4 + t; q < body_end / 4; q += stride) {
+    reinterpret_cast<int4*>(src)[q] = zero;
+    reinterpret_cast<int4*>(verts)[q] = zero;
+  }
+}
+
 }  // namespace
 
 extern "C" int repro_intersect_count(const int* a, const int* b,
@@ -800,11 +994,42 @@ extern "C" int repro_intersect_expand(const int* a, const int* b,
                                       const int* bounds, const int* lbounds,
                                       int* mark, int* counts, int rows,
                                       int cap_a, int cap_b, void* stream) {
-  const int threads = cap_a >= 2048 ? 256 : 128;
-  const int stage_keys = cap_b < kStageKeys ? cap_b : kStageKeys;
-  expand_kernel<<<rows, threads, stage_keys * sizeof(int),
-                  static_cast<cudaStream_t>(stream)>>>(a, b, bounds, lbounds, mark,
-                                                       counts, cap_a, cap_b, stage_keys);
+  return launch_expand<false>(PaddedRows{a, nullptr, rows, cap_a},
+                              PaddedRows{b, nullptr, rows, cap_b}, bounds, lbounds, mark,
+                              counts, rows, cap_a, cap_b, cap_a, stream);
+}
+
+// The INTER expand level: B's row i the neighbours of vb[i] cut at cap_b;
+// A's row a's (a != NULL, (B, cap_a) padded) or the neighbours of va[i]
+// cut at cap_a; rows (B, out_cap) and counts (B,) out.
+extern "C" int repro_intersect_expand_csr(const int* indptr, const int* indices,
+                                          const int* a, const int* va, const int* vb,
+                                          const int* bounds, const int* lbounds,
+                                          int* out_rows, int* counts, int rows,
+                                          int cap_a, int cap_b, int out_cap,
+                                          void* stream) {
+  const CsrRows B{indptr, indices, nullptr, vb, rows, {cap_b}};
+  if (a)
+    return launch_expand<true>(PaddedRows{a, nullptr, rows, cap_a}, B, bounds, lbounds,
+                               out_rows, counts, rows, cap_a, cap_b, out_cap, stream);
+  return launch_expand<true>(CsrRows{indptr, indices, nullptr, va, rows, {cap_a}}, B,
+                             bounds, lbounds, out_rows, counts, rows, cap_a, cap_b,
+                             out_cap, stream);
+}
+
+// rows2 (B, out_cap), counts and offs (B,) in; src and verts (out_items,)
+// out. counts[i] <= out_cap for every row.
+extern "C" int repro_expand_items(const int* rows2, const int* counts, const int* offs,
+                                  int* src, int* verts, int batch, int out_cap,
+                                  int out_items, void* stream) {
+  if (batch < 0 || out_cap < 1 || out_items < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int row_blocks = (batch + kItemThreads / 32 - 1) / (kItemThreads / 32);
+  int tail_blocks = (out_items / 4 + kItemThreads) / kItemThreads;
+  tail_blocks = tail_blocks < kItemTailBlocks ? tail_blocks : kItemTailBlocks;
+  expand_items_kernel<<<row_blocks + tail_blocks, kItemThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      rows2, counts, offs, src, verts, batch, out_cap, out_items, row_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -154,6 +154,41 @@ __device__ __forceinline__ void async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Where a thread's kept keys go in one step of a team that packs
+// survivors in order: each thread holds four consecutive keys' keep flags,
+// threads in rank order. Returns (kept by lower ranks, kept by the whole
+// team) from a __ballot_sync per flag and __popc of the words; a block
+// team (kWarp false) adds each warp's total through `warp_kept`, one slot a
+// warp, a barrier between the write and the read. Give consecutive steps
+// alternate `warp_kept` buffers: a step's writes then never meet a slower
+// warp's reads of the step before, and one barrier a step suffices. Every
+// thread of the team calls it.
+template <bool kWarp>
+__device__ __forceinline__ int2 team_pack_offsets(const int (&keep)[4], int* warp_kept) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int before = 0, total = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned word = __ballot_sync(kFull, keep[j]);
+    before += __popc(word & below);
+    total += __popc(word);
+  }
+  if constexpr (!kWarp) {
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) warp_kept[warp] = total;
+    __syncthreads();
+    total = 0;
+    const int nwarps = blockDim.x >> 5;
+    for (int w = 0; w < nwarps; ++w) {
+      const int c = warp_kept[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+  }
+  return make_int2(before, total);
+}
+
 // Merge path: how many of a's keys come among the first d of the merge of
 // a[0, na) and b[0, nb), a's key first on a tie.
 __device__ __forceinline__ int merge_path(const int* __restrict__ a, int na,

@@ -14,10 +14,15 @@ kernels of ``repro/kernels/intersect.py`` on the mining main path:
 
 More entries serve the engine's levels with reference rows read straight
 from the graph's CSR (no gathered (B, cap) matrix in device memory), on the
-same device templates and launch counters as their padded-row forms:
+same device templates and launch counters as their padded-row forms.
+``expand_items`` (a second kernel of the same source, on its own counter)
+turns ``intersect_expand_csr``'s rows into the level's worklist.
 
   ``intersect_count_csr``      the count leaf: B's rows (and a fresh base's)
                                given as vertex ids            -> counts (B,)
+  ``intersect_expand_csr``     the INTER expand level: the same operands,
+                               the survivors front-packed in the kernel
+                                          -> (rows (B, out_cap), counts (B,))
   ``intersect_sub_count_csr``  the SUB count leaf: the same, counting A's
                                keys NOT in B; counts in ``intersect_mark``
   ``intersect_mark_csr``       SUB expand levels and the per-reference masks:
@@ -49,8 +54,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.batch import (AGG_OPS, batch_sub_count, inter_keep, level_agg,
-                                    level_keep)
+from repro_torch.core.batch import (AGG_OPS, batch_compact_rows, batch_compact_scan,
+                                    batch_sub_count, inter_keep, level_agg, level_keep)
 from repro_torch.core.stream import LANE, SENTINEL
 from repro_torch.graph.csr import csr_rows
 
@@ -98,6 +103,25 @@ def intersect_count_csr_ref(indptr, indices, vb, cap_b, a=None, va=None, cap_a=N
     if a is None:
         a = csr_rows(indptr, indices, va, cap_a)
     return intersect_count_ref(a, csr_rows(indptr, indices, vb, cap_b), bounds, lbounds)
+
+
+def intersect_expand_csr_ref(indptr, indices, vb, cap_b, out_cap: int, a=None, va=None,
+                             cap_a=None, bounds=None, lbounds=None):
+    """Plain torch version of ``intersect_expand_csr``: the rows gathered,
+    ``intersect_expand_ref``'s mark, then ``batch_compact_rows``."""
+    if a is None:
+        a = csr_rows(indptr, indices, va, cap_a)
+    mark, counts = intersect_expand_ref(a, csr_rows(indptr, indices, vb, cap_b), bounds,
+                                        lbounds)
+    return batch_compact_rows(a, mark > 0, out_cap)[0], counts
+
+
+def expand_items_ref(rows, counts, offs, out_items: int):
+    """Plain torch version of ``expand_items``: ``batch_compact_scan``'s
+    (src, verts) over the front-packed rows (``offs`` is the exclusive
+    prefix sum of ``counts``, which the scan computes itself)."""
+    keep = torch.arange(rows.shape[1], device=rows.device)[None] < counts[:, None]
+    return batch_compact_scan(rows, keep, rows.shape[1], out_items)[2:4]
 
 
 def _csr_stack(indptr, indices, vbs, caps_b, values=None) -> torch.Tensor:
@@ -396,8 +420,11 @@ def intersect_sub_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=N
 
 def intersect_expand(a, b, bounds=None, lbounds=None):
     """Fused bounded membership mark + per-row count in one pass:
-    (mark (B, cap_a) int32, counts (B,) int32)."""
+    (mark (B, cap_a) int32, counts (B,) int32). The port of the TPU
+    kernel's contract; the engine's INTER expand level takes
+    ``intersect_expand_csr``, which writes no mark."""
     _check(a, b, bounds, lbounds)
+    _check_aligned("a", a)
     if a.device.type == "cpu":
         return intersect_expand_ref(a, b, bounds, lbounds)
     mark = torch.empty(a.shape, dtype=torch.int32, device=a.device)
@@ -410,6 +437,78 @@ def intersect_expand(a, b, bounds=None, lbounds=None):
 
 
 intersect_expand.launches = 0
+
+
+def intersect_expand_csr(indptr, indices, vb, cap_b, out_cap: int, a=None, va=None,
+                         cap_a=None, bounds=None, lbounds=None):
+    """The INTER expand level with rows read from a CSR and its survivors
+    packed in the kernel -> (rows (B, out_cap) int32, counts (B,) int32).
+
+    B's row i is the neighbour list of ``vb[i]`` cut at ``cap_b``; A's row i
+    is ``a[i]`` of a padded (B, cap_a) matrix (a carried base) or, given
+    ``va`` and ``cap_a``, the neighbour list of ``va[i]`` cut at ``cap_a``
+    (a fresh base), as in ``intersect_count_csr``. ``rows[i]`` holds A_i's
+    keys inside (lbounds[i], bounds[i]) that are in B_i, in order,
+    front-packed, SENTINEL after; ``counts[i]`` their number. Bound 0 kills
+    a row. ``out_cap`` must be at least min(cap_a, cap_b), so that no row is
+    cut: the rows then equal ``batch_compact_rows(a, intersect_expand(a, b,
+    ...)[0] > 0, out_cap)`` and feed ``expand_items``. No (B, cap_a) mark is
+    written. Launches count in ``intersect_expand.launches``."""
+    _check_csr(indptr, indices)
+    rows = _check_vertices("vb", vb, indptr.device)
+    _check_cap("cap_b", cap_b)
+    cap_a = _check_base(indptr, a, va, cap_a, rows)
+    _check_bounds(indptr, bounds, lbounds, rows)
+    _check_cap("out_cap", out_cap)
+    if out_cap < min(cap_a, cap_b):
+        raise ValueError(f"out_cap {out_cap} < min(cap_a, cap_b) = {min(cap_a, cap_b)}: "
+                         "a row could be cut, and its worklist with it")
+    if indptr.device.type == "cpu":
+        return intersect_expand_csr_ref(indptr, indices, vb, cap_b, out_cap, a, va, cap_a,
+                                        bounds, lbounds)
+    out = torch.empty((rows, out_cap), dtype=torch.int32, device=indptr.device)
+    counts = torch.empty(rows, dtype=torch.int32, device=indptr.device)
+    if rows:
+        launch("intersect", "repro_intersect_expand_csr", indptr.device,
+               (indptr, indices, a, va, vb, bounds, lbounds, out, counts),
+               (rows, cap_a, cap_b, out_cap))
+        intersect_expand.launches += 1
+    return out, counts
+
+
+def expand_items(rows, counts, offs, out_items: int):
+    """The worklist of an expand level's survivors -> (src, verts), each
+    (out_items,) int32.
+
+    ``rows`` (B, out_cap) holds each row's survivors front-packed
+    (``intersect_expand_csr``'s), ``counts`` (B,) their numbers, none above
+    out_cap, and ``offs`` (B,) the exclusive prefix sum of ``counts``. Item
+    offs[i] + j is (i, rows[i, j]) for j < counts[i]; items from the total
+    on are (0, 0), and items past ``out_items`` drop: ``batch_compact_scan``'s
+    src and verts on the same survivors. One launch of a kernel of
+    ``csrc/intersect.cu``, counted in ``expand_items.launches``."""
+    dev = rows.device
+    if rows.dim() != 2:
+        raise ValueError(f"rows must be (B, out_cap), got {tuple(rows.shape)}")
+    _check_tensor("rows", rows, tuple(rows.shape), torch.int32, dev)
+    batch, out_cap = rows.shape
+    _check_tensor("counts", counts, (batch,), torch.int32, dev)
+    _check_tensor("offs", offs, (batch,), torch.int32, dev)
+    _check_cap("out_cap", out_cap)
+    _check_cap("out_items", out_items)
+    if dev.type == "cpu":
+        return expand_items_ref(rows, counts, offs, out_items)
+    if dev.type != "cuda":
+        raise ValueError(f"no expand-items kernel for device {dev}")
+    src = torch.empty(out_items, dtype=torch.int32, device=dev)
+    verts = torch.empty(out_items, dtype=torch.int32, device=dev)
+    launch("intersect", "repro_expand_items", dev, (rows, counts, offs, src, verts),
+           (batch, out_cap, out_items))
+    expand_items.launches += 1
+    return src, verts
+
+
+expand_items.launches = 0
 
 
 def intersect_mark(a, b, bounds=None, lbounds=None) -> torch.Tensor:

@@ -14,9 +14,10 @@ from repro_torch.core.stream import SENTINEL
 
 from .bitmap import bitmap_and_count, keys_to_bitmap
 from .compact import compact_rows
-from .intersect import (intersect_count, intersect_count_csr, intersect_expand,
-                        intersect_mark, intersect_mark_csr, intersect_multi,
-                        intersect_multi_agg, intersect_multi_agg_csr, intersect_multi_csr,
+from .intersect import (expand_items, intersect_count, intersect_count_csr,
+                        intersect_expand, intersect_expand_csr, intersect_mark,
+                        intersect_mark_csr, intersect_multi, intersect_multi_agg,
+                        intersect_multi_agg_csr, intersect_multi_csr,
                         intersect_multi_mark_csr, intersect_sub_count_csr)
 from .svinter import vinter
 
@@ -64,6 +65,26 @@ def xinter_compact(a, b, bounds=None, out_cap: int | None = None,
     mark, counts = intersect_expand(a, b, bounds, lbounds)
     rows, _, src, verts, total, maxc = batch_compact_scan(a, mark > 0, cap, items)
     return rows, counts, src, verts, total, maxc
+
+
+def xinter_compact_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
+                       bounds=None, out_cap: int | None = None,
+                       out_items: int | None = None, lbounds=None):
+    """``xinter_compact`` with B's rows, and a fresh base's, read from the
+    CSR (vertex ids ``vb`` / ``va`` at their caps; a carried base as padded
+    rows ``a``): the engine's INTER expand level, the same six outputs with
+    no torch scatter. The expand kernel packs each row's survivors and
+    counts them, an exclusive ``torch.cumsum`` of the B counts gives each
+    row's first item, and the items kernel writes ``src`` / ``verts``.
+    ``out_cap`` (default min(cap_a, cap_b)) must not cut a row."""
+    cap_a = a.shape[1] if a is not None else cap_a
+    cap = out_cap or min(cap_a, cap_b)
+    items = out_items or vb.shape[0] * cap
+    rows, counts = intersect_expand_csr(indptr, indices, vb, cap_b, cap, a, va, cap_a,
+                                        bounds, lbounds)
+    offs = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+    src, verts = expand_items(rows, counts, offs, items)
+    return rows, counts, src, verts, counts.sum(dtype=torch.int32), counts.max()
 
 
 def xmark(a, b):

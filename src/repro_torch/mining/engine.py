@@ -11,9 +11,11 @@ level-synchronous waves:
            neighbour stream under its bounds (the clique case is
            S_l = S_{l-1} ∩ N(v) ∩ [0, v)), then counted or compacted
 
-Between levels the survivors are compacted on the device
-(``ops.xinter_compact``: the intersect-expand kernel, then a prefix-sum
-scatter) into the next wave's (rows, verts) buffers. Per level only one
+Between levels the survivors are compacted on the device into the next
+wave's (rows, verts) buffers: an INTER level's by ``ops.xinter_compact_csr``
+(the expand kernel packs each row's survivors, the items kernel writes the
+worklist), a SUB or general level's by a keep mark and the prefix-sum
+scatter ``batch_compact_scan``. Per level only one
 small meta vector (total, max survivor count, max degree of each gathered
 column) crosses to the host, to size the next level's capacities; count
 levels leave one int64 partial per chunk on the device, summed and read
@@ -21,7 +23,8 @@ once per run. Padded tail items carry bound 0, so they contribute nothing.
 
 A level runs in one of three shapes, as in the reference engine:
 
-  'inter'  one INTER reference: the count / expand kernels
+  'inter'  one INTER reference: the count / expand kernels, which read a
+           fresh base from the CSR too and write no mark
   'sub'    one SUB reference (an induced non-edge): the count kernel's SUB
            form on a count leaf, the mark kernel (the window inside it) on
            an expand level
@@ -31,11 +34,11 @@ A level runs in one of three shapes, as in the reference engine:
            the keep mask; a window-only level (k = 0) launches nothing
 
 Every kernel reads a level's reference rows straight from the CSR (vertex
-ids and caps), as it reads a count leaf's fresh base. Padded rows are
-gathered (``graph.csr.padded_rows``) only for what still takes them: an
-expand level's fresh base, which the compaction packs, the reference of an
-INTER expand level (the expand kernel), and the base of a window-only or
-``fused_level=False`` level.
+ids and caps), as it reads a count leaf's and an INTER expand level's fresh
+base. Padded rows are gathered (``graph.csr.padded_rows``) only for what
+still takes them: a SUB or general expand level's fresh base, which the
+compaction packs, and the base of a window-only or ``fused_level=False``
+level.
 
 An aggregate leaf (a weighted query, ``plan.compile_pattern(aggregate=)``)
 replaces the count leaf: one launch of the value-lane kernel
@@ -75,7 +78,7 @@ from repro_torch.core.batch import batch_compact_scan, compact_indices_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
 from repro_torch.kernels.compact import compact_rows
-from repro_torch.kernels.ops import (xinter_compact, xinter_count_csr, xlevel_agg,
+from repro_torch.kernels.ops import (xinter_compact_csr, xinter_count_csr, xlevel_agg,
                                      xlevel_agg_csr, xlevel_compact, xlevel_compact_csr,
                                      xlevel_count, xlevel_count_csr, xmark_csr,
                                      xsub_compact_csr, xsub_count_csr)
@@ -387,6 +390,15 @@ class WaveRunner:
         return carry if op.use_carry else \
             padded_rows(g, get[op.base], caps[op.base])[0]
 
+    @staticmethod
+    def _csr_base(op: LevelOp, get, carry, caps: dict):
+        """A kernel's base operand without a gather -> (keyword arguments,
+        rows): the carried survivor stream as padded rows ``a``, else the
+        base column's vertex ids ``va`` at their cap."""
+        if op.use_carry:
+            return dict(a=carry), carry.shape[0]
+        return dict(va=get[op.base], cap_a=caps[op.base]), get[op.base].shape[0]
+
     def _mask_ops(self, op: LevelOp, caps: dict):
         """The ``fused_level=False`` general path: AND one membership mark
         per INTER/SUB reference (one mark launch each, the reference read
@@ -438,9 +450,7 @@ class WaveRunner:
             if fused or (use_xlevel and refs):
                 # rows straight from the CSR: the references always, the
                 # base unless it is the carried survivor stream
-                base_kw = dict(a=carry) if op.use_carry else \
-                    dict(va=get[op.base], cap_a=caps[op.base])
-                nrows = carry.shape[0] if op.use_carry else get[op.base].shape[0]
+                base_kw, nrows = self._csr_base(op, get, carry, caps)
                 ub = self._ub_vec(op, get, n, nrows)
                 lb = self._max_lb(op, get) if op.lb else None
                 if fused:
@@ -551,29 +561,33 @@ class WaveRunner:
                        out_items: int):
         """Survivors -> compacted items in one ``x*_compact``: a fused
         'inter'/'sub' level or a general level through the k-reference
-        kernel (references read from the CSR but an INTER level's), where
-        the per-row bound vector (``_ub_vec``) folds the upper bounds, the
-        live mask and any residuals into the bound operand and lower bounds
-        ride ``lbounds``; with ``fused_level=False`` a general level
-        composes one mark per reference. Every path ends in the
-        ``batch_compact_scan`` prefix-sum scatter."""
+        kernel (references read from the CSR), where the per-row bound
+        vector (``_ub_vec``) folds the upper bounds, the live mask and any
+        residuals into the bound operand and lower bounds ride ``lbounds``;
+        with ``fused_level=False`` a general level composes one mark per
+        reference. An INTER level reads its base from the CSR too (or the
+        carry) and its kernels pack the survivors and write the worklist;
+        every other path ends in the ``batch_compact_scan`` prefix-sum
+        scatter over a padded base."""
         fused = self._fused_shape(op)
         keep_of = self._mask_ops(op, caps)
         refs = op.inter + op.sub
         pol = (1,) * len(op.inter) + (0,) * len(op.sub)
         use_xlevel = fused is None and self.fused_level
 
-        def core(g, get, base, n):
+        def core(g, get, carry, n):
+            if fused == "inter":
+                base_kw, nrows = self._csr_base(op, get, carry, caps)
+                return xinter_compact_csr(g.indptr, g.indices, get[refs[0]], caps[refs[0]],
+                                          **base_kw, bounds=self._ub_vec(op, get, n, nrows),
+                                          out_cap=out_cap, out_items=out_items,
+                                          lbounds=self._max_lb(op, get) if op.lb else None)
+            base = self._base(op, g, get, carry, caps)
             if not (fused or use_xlevel):
                 return batch_compact_scan(base, keep_of(g, base, get, n), out_cap,
                                           out_items)
             ub = self._ub_vec(op, get, n, base.shape[0])
             lb = self._max_lb(op, get) if op.lb else None
-            if fused == "inter":
-                # the expand kernel still takes its reference as padded rows
-                nbr, _ = padded_rows(g, get[refs[0]], caps[refs[0]])
-                return xinter_compact(base, nbr, ub, out_cap=out_cap,
-                                      out_items=out_items, lbounds=lb)
             if fused == "sub":
                 return xsub_compact_csr(g.indptr, g.indices, base, get[refs[0]],
                                         caps[refs[0]], ub, out_cap=out_cap,
@@ -608,8 +622,7 @@ class WaveRunner:
 
         def fn(g, vals, carry, n):
             get = dict(zip(in_cols, vals))
-            base = self._base(op, g, get, carry, caps)
-            rows2, _, src, verts, total, maxc = core(g, get, base, n)
+            rows2, _, src, verts, total, maxc = core(g, get, carry, n)
             live = torch.arange(out_items, device=src.device) < total
             metas = [total, maxc]
             for c in op.gather_refs:

@@ -469,19 +469,23 @@ def test_level_csr_forms_refuse_an_unaligned_base(cuda):
 
 
 def test_sub_and_general_levels_on_card_gather_no_reference_rows(cuda, monkeypatch):
-    """On the card, three-chain-induced gathers no padded rows and paw only
-    its level-2 expand's fresh base and INTER reference; the CPU's counts."""
+    """On the card, three-chain-induced and paw (an INTER expand level, then
+    a general leaf) gather no padded rows, and 4-cycle only its level-2
+    expand's fresh base; the CPU's counts."""
     from repro_torch.mining import engine
     g = get_dataset("email-eu-core", 0.25)
-    want = {q: Miner(g, device="cpu").count(q) for q in ("three-chain-induced", "paw")}
+    queries = ("three-chain-induced", "paw", "4-cycle")
+    want = {q: Miner(g, device="cpu").count(q) for q in queries}
     calls = []
     gather = engine.padded_rows
     monkeypatch.setattr(engine, "padded_rows",
                         lambda *a, **kw: calls.append(1) or gather(*a, **kw))
     m = Miner(g)
     assert m.count("three-chain-induced") == want["three-chain-induced"] and not calls
-    assert m.count("paw") == want["paw"]
-    assert len(calls) == 2 * m.runner.level_execs[("expand", 2)]
+    assert m.count("paw") == want["paw"] and not calls
+    level2 = m.runner.level_execs[("expand", 2)]
+    assert m.count("4-cycle") == want["4-cycle"]
+    assert len(calls) == m.runner.level_execs[("expand", 2)] - level2 > 0
 
 
 def test_leaves_on_card_gather_no_padded_rows(cuda, monkeypatch):
@@ -499,3 +503,76 @@ def test_leaves_on_card_gather_no_padded_rows(cuda, monkeypatch):
     monkeypatch.setattr(engine, "padded_rows", refuse)
     monkeypatch.setattr(engine, "padded_value_rows", refuse)
     assert (Miner(g).count("triangle"), Miner(wg).aggregate("triangle", "sum")) == want
+
+
+@pytest.mark.parametrize("B,cap_a,cap_b,cut", CSR_SHAPES)
+def test_expand_csr_and_items_kernels_equal_plain_versions(cuda, B, cap_a, cap_b, cut):
+    """The INTER expand level's CSR form (a CSR and a padded base, bounds
+    set, partly set and None, out_cap at and above min(cap_a, cap_b)) and
+    the items pass (out_items at the rows' size and below the total): bit
+    for bit against the plain versions, one launch a call on each counter;
+    ops.xinter_compact_csr's six outputs equal the CPU's."""
+    c = _csr_case(cuda, B, cap_a, cap_b, 1, B + cap_a + 5 * cut)
+    ca, cb = cap_a // cut, cap_b // cut
+    a_cut = c["a"][:, :ca].contiguous()
+    csr = (c["indptr"], c["indices"], c["vbs"][0], cb)
+    for bd, lbd in ((c["bounds"], c["lbounds"]), (c["bounds"], None), (None, None)):
+        for kw in (dict(va=c["va"], cap_a=ca), dict(a=a_cut)):
+            for out_cap in (min(ca, cb), max(ca, cb) + 5):
+                n = K.intersect_expand.launches
+                got = K.intersect_expand_csr(*csr, out_cap, **kw, bounds=bd, lbounds=lbd)
+                torch.cuda.synchronize()
+                assert K.intersect_expand.launches == n + 1
+                want = K.intersect_expand_csr_ref(*csr, out_cap, **kw, bounds=bd, lbounds=lbd)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            rows, counts = got
+            offs = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+            total = int(counts.sum())
+            for items in (rows.numel(), max(1, total // 2)):
+                n = K.expand_items.launches
+                got_i = K.expand_items(rows, counts, offs, items)
+                torch.cuda.synchronize()
+                assert K.expand_items.launches == n + 1
+                want_i = K.expand_items_ref(rows, counts, offs, items)
+                assert torch.equal(got_i[0], want_i[0]) and torch.equal(got_i[1], want_i[1])
+            dev = tops.xinter_compact_csr(*csr, **kw, bounds=bd, lbounds=lbd)
+            cpu_kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+            cpu = tops.xinter_compact_csr(*(x.cpu() for x in csr[:3]), cb, **cpu_kw,
+                                          bounds=None if bd is None else bd.cpu(),
+                                          lbounds=None if lbd is None else lbd.cpu())
+            for d, w in zip(dev, cpu):
+                assert torch.equal(d.cpu(), w)
+
+
+def test_padded_expand_refuses_an_unaligned_base(cuda):
+    """The padded expand reads its base 16 bytes at a time: a view starting
+    off a 16-byte boundary raises before any launch."""
+    a = torch.full((8 * 128 + 1,), SENTINEL, dtype=torch.int32, device=cuda)[1:].view(8, 128)
+    b = torch.full((8, 128), SENTINEL, dtype=torch.int32, device=cuda)
+    n = K.intersect_expand.launches
+    with pytest.raises(ValueError):
+        K.intersect_expand(a, b)
+    assert K.intersect_expand.launches == n
+
+
+def test_inter_expand_levels_on_card_gather_no_padded_rows(cuda, monkeypatch):
+    """4-clique, 5-clique and diamond read every row from the CSR on the
+    card: no padded_rows gather, the CPU's counts and runner counters; one
+    expand and one items launch per device compaction."""
+    from repro_torch.mining import engine
+    g = get_dataset("email-eu-core", 0.25)
+    queries = ("4-clique", "5-clique", "diamond")
+    cpu = Miner(g, device="cpu")
+    want = {q: (cpu.count(q), dict(cpu.stats["runner"])) for q in queries}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an INTER expand level gathered padded rows")
+    monkeypatch.setattr(engine, "padded_rows", refuse)
+    m = Miner(g)
+    for q in queries:
+        n0, n1 = K.intersect_expand.launches, K.expand_items.launches
+        c0 = m.stats["runner"]["device_compactions"]
+        assert m.count(q) == want[q][0], q
+        assert dict(m.stats["runner"]) == want[q][1], q
+        calls = m.stats["runner"]["device_compactions"] - c0
+        assert K.intersect_expand.launches - n0 == K.expand_items.launches - n1 == calls > 0
