@@ -15,9 +15,12 @@ exception exits non-zero:
   3. parity   each kernel against its plain torch version on the card, on
               seeded random rows at the main path's shapes (the k-reference
               kernels over INTER/SUB polarities, excludes and bound-0 rows;
-              the value-lane and S_VINTER kernels over every op; compact-rows
-              over keep densities, cut rows, dead rows and SENTINEL slots;
-              the bitmap count over random words), bit for bit on dyadic
+              the value-lane and S_VINTER kernels over every op, S_VINTER in
+              its paired and its grid form, timed at ttv's fibre block and
+              email-core's spmm block; compact-rows over keep
+              densities, cut rows, dead rows, SENTINEL slots and views at a
+              storage offset, and both its teams swept over caps; the
+              bitmap count over random words), bit for bit on dyadic
               values and within rtol 1e-6 on others; each kernel timed three
               ways (kernel_times: device ms, call ms, host us per call) and
               its plain version by CUDA events; ops.xinter against the CPU's
@@ -46,7 +49,8 @@ exception exits non-zero:
               unweighted twin and one value-lane launch per leaf call; a
               weighted triangle's leaf gathers no padded rows
   7. sparse   repro_torch.sparse.spmsp_matmul and ttv at the paper's Table
-              VI sizes, against float64 numpy products
+              VI sizes, against float64 numpy products; each product's wall
+              and S_VINTER launches (one a block, as in the JAX package)
   8. forest   Miner.count_many (the plan forest): TM on mico, 4M on
               wiki-vote, each equal to the JAX package's counts and to
               per-query counts in the same session; the forest's static
@@ -63,7 +67,8 @@ exception exits non-zero:
               equal to the sorted-row count of the same rows; the
               merge-against-bitmap crossover sweep of
               benchmarks/bench_kernels.py, timed on the card
- 11. profile  mico's queries once more under torch.profiler: device busy
+ 11. profile  mico's queries once more under torch.profiler, then mico's
+              4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
  12. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
@@ -166,6 +171,12 @@ SPARSE_TENSORS = (("chicago-s", (600, 24, 240), 50_000),
 # pairs, a ttv fibre block against the 240-key vector, and long rows
 VINTER_SHAPES = ((4096, 128, 128), (512, 128, 256), (2048, 2048, 2048))
 VINTER_OPS = ("mac", "max", "min")
+VINTER_LONG = (2048, 2048, 2048)
+# (nr, nc, cap_a, cap_b) of the grid form: spmm's 64 x 64 block, stacks not
+# a multiple of the block's tile, and 2048 pairs of long rows (timed beside
+# VINTER_LONG)
+GRID_SHAPES = ((64, 64, 128, 128), (45, 37, 256, 256), (32, 64, 2048, 2048))
+GRID_LONG = (32, 64, 2048, 2048)
 
 # (B, cap_a, cap_b): mico's level-1 chunk at the smallest and the largest
 # degree bucket, and youtube's 128-row chunk at its 32768-key bucket
@@ -199,10 +210,16 @@ CSR_LEVEL_WARP = (2048, 1024, 2, 1024)
 # window past shared memory; timed at TIMED_SHAPE and this warp-a-row shape
 EXPAND_SHAPES = CSR_SHAPES + ((128, 32768, 2048, 1),)
 EXPAND_WARP = (2048, 1024, 1024)
-# compact-rows: (B, cap, out_cap) x keep densities; (4096, 256, 64) cuts rows
+# compact-rows: (B, cap, out_cap) x keep densities; (4096, 256, 64) cuts
+# rows; (2048, 1023, 1023) takes the scalar loads (each shape also runs on
+# views at a storage offset); COMPACT_WARP is the warp-a-row team's timed
+# shape; the team sweep times both teams at these caps
 COMPACT_SHAPES = (((2048, 2048, 2048), (0.05, 0.3, 1.0)), ((2048, 128, 128), (0.3,)),
-                  ((4096, 256, 64), (0.3, 1.0)))
+                  ((2048, 256, 256), (0.3,)), ((4096, 256, 64), (0.3, 1.0)),
+                  ((2048, 1023, 1023), (0.3,)))
 COMPACT_TIMED = (2048, 2048, 2048, 0.3)
+COMPACT_WARP = (2048, 256, 256, 0.3)
+COMPACT_SWEEP = (128, 256, 512, 1024, 2048)
 # bitmap words a row: mico's 96600 vertices (3019 words, padded to 3072),
 # one tile, and youtube's 1048576 vertices
 BITMAP_SHAPES = ((2048, 3072), (128, 256), (64, 32768))
@@ -265,10 +282,15 @@ COUNT_KERNELS = ("intersect_count", "intersect_expand", "expand_items", "interse
 
 
 def wrappers() -> dict:
-    """Kernel name -> its wrapper, whose ``launches`` counts kernel launches."""
+    """Kernel name -> its wrapper, whose ``launches`` counts kernel launches;
+    also ``vinter_grid``, the S_VINTER kernel's grid form, where the tree
+    has it (a parent measured with --src may not)."""
     from repro_torch.kernels import bitmap, compact, intersect, svinter
     module = {"vinter": svinter, "compact_rows": compact, "bitmap_and_count": bitmap}
-    return {name: getattr(module.get(name, intersect), name) for name in KERNELS}
+    out = {name: getattr(module.get(name, intersect), name) for name in KERNELS}
+    if hasattr(svinter, "vinter_grid"):
+        out["vinter_grid"] = svinter.vinter_grid
+    return out
 
 
 def zero_launches() -> None:
@@ -980,36 +1002,81 @@ def _vinter_bound(ak, bk, rows: int) -> tuple[float, str]:
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def _vinter_grid_bound(ak, bk) -> tuple[float, str]:
+    """The grid form's: each stack's distinct live keys and values read
+    once, nr x nc x 4 bytes written; or log2 cap_b compares per live A key
+    per B row at the int rate."""
+    nr, nc = ak.shape[0], bk.shape[0]
+    a_live, b_live = int((ak != SENTINEL).sum()), int((bk != SENTINEL).sum())
+    bytes_ms = ((a_live + b_live) * 8 + nr * nc * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = nc * a_live * max(1, (bk.shape[1] - 1).bit_length()) / INT_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _check_vinter(report, label: str, got, want, dyadic: bool) -> None:
+    """Dyadic values bit for bit, others within rtol 1e-6."""
+    torch.cuda.synchronize()
+    _record(report, "vinter", _max_err([got], [want]))
+    ok = torch.equal(got, want) if dyadic else torch.allclose(got, want, rtol=1e-6, atol=0)
+    if not ok:
+        raise SystemExit(f"[parity] MISMATCH {label} ({'dyadic' if dyadic else 'in [0.5, 2)'} "
+                         f"values): {_max_err([got], [want])}")
+
+
 def _parity_vinter(SV, report, gen, B, cap_a, cap_b):
     """S_VINTER at one shape for every op: dyadic values bit for bit (B's
     rows also as one row expanded over the batch), values in [0.5, 2)
-    within rtol 1e-6."""
+    within rtol 1e-6; timed at VINTER_LONG."""
     span = cap_a + cap_b
     ak, bk = sorted_rows(gen, B, cap_a, span), sorted_rows(gen, B, cap_b, span)
     va, vb = values_like(gen, ak), values_like(gen, bk)
     nva, nvb = values_like(gen, ak, dyadic=False), values_like(gen, bk, dyadic=False)
     b1, vb1 = bk[:1].expand(B, cap_b), vb[:1].expand(B, cap_b)
+    label = f"vinter B={B} caps=({cap_a},{cap_b})"
     for op in VINTER_OPS:
         for args in ((ak, va, bk, vb), (ak, va, b1, vb1)):
-            got, want = SV.vinter(*args, op), SV.vinter_ref(*args, op)
-            torch.cuda.synchronize()
-            _record(report, "vinter", _max_err([got], [want]))
-            if not torch.equal(got, want):
-                raise SystemExit(f"[parity] MISMATCH vinter B={B} caps=({cap_a},{cap_b}) "
-                                 f"op={op} b stride {args[2].stride(0)}")
-        got, want = SV.vinter(ak, nva, bk, nvb, op), SV.vinter_ref(ak, nva, bk, nvb, op)
-        torch.cuda.synchronize()
-        _record(report, "vinter", _max_err([got], [want]))
-        if not torch.allclose(got, want, rtol=1e-6, atol=0):
-            raise SystemExit(f"[parity] MISMATCH vinter non-dyadic B={B} "
-                             f"caps=({cap_a},{cap_b}) op={op}: {_max_err([got], [want])}")
+            _check_vinter(report, f"{label} op={op} b stride {args[2].stride(0)}",
+                          SV.vinter(*args, op), SV.vinter_ref(*args, op), True)
+        _check_vinter(report, f"{label} op={op}", SV.vinter(ak, nva, bk, nvb, op),
+                      SV.vinter_ref(ak, nva, bk, nvb, op), False)
     args = (ak, va, bk, vb)
-    ms, plain_ms = cuda_ms(lambda: SV.vinter(*args)), cuda_ms(lambda: SV.vinter_ref(*args))
-    bound_ms, _ = _vinter_bound(ak, bk, B)
-    print(f"[parity] vinter B={B} caps=({cap_a},{cap_b}) ops {list(VINTER_OPS)}: dyadic "
-          f"values equal bit for bit, also against one broadcast row; values in "
-          f"[0.5, 2) within rtol 1e-6; mac {ms:.4f} ms kernel, {plain_ms:.4f} ms "
-          f"plain, bound {bound_ms:.4f} ms", flush=True)
+    bound_ms, by = _vinter_bound(ak, bk, B)
+    text = f"bound {bound_ms:.4f} ms"
+    if (B, cap_a, cap_b) == VINTER_LONG:
+        times = kernel_times(lambda: SV.vinter(*args))
+        plain_ms = cuda_ms(lambda: SV.vinter_ref(*args))
+        text = f"{_times_text(times)}, {plain_ms:.4f} ms plain, {text} ({by})"
+        report["vinter"].update({f"long_{n}": v for n, v in times.items()},
+                                long_plain_ms=plain_ms, long_bound_ms=bound_ms)
+    print(f"[parity] {label} ops {list(VINTER_OPS)}: dyadic values equal bit for bit, also "
+          f"against one broadcast row; values in [0.5, 2) within rtol 1e-6; {text}",
+          flush=True)
+
+
+def _parity_vinter_grid(SV, report, gen, nr, nc, cap_a, cap_b):
+    """The grid form at one shape for every op, against its plain version
+    (batch_vinter over repeated rows): dyadic values bit for bit, values in
+    [0.5, 2) within rtol 1e-6; timed at GRID_LONG."""
+    span = cap_a + cap_b
+    ak, bk = sorted_rows(gen, nr, cap_a, span), sorted_rows(gen, nc, cap_b, span)
+    va, vb = values_like(gen, ak), values_like(gen, bk)
+    nva, nvb = values_like(gen, ak, dyadic=False), values_like(gen, bk, dyadic=False)
+    label = f"vinter_grid {nr} x {nc} caps=({cap_a},{cap_b})"
+    for op in VINTER_OPS:
+        _check_vinter(report, f"{label} op={op}", SV.vinter_grid(ak, va, bk, vb, op),
+                      SV.vinter_grid_ref(ak, va, bk, vb, op), True)
+        _check_vinter(report, f"{label} op={op}", SV.vinter_grid(ak, nva, bk, nvb, op),
+                      SV.vinter_grid_ref(ak, nva, bk, nvb, op), False)
+    bound_ms, by = _vinter_grid_bound(ak, bk)
+    text = f"bound {bound_ms:.3g} ms ({by})"
+    if (nr, nc, cap_a, cap_b) == GRID_LONG:
+        times = kernel_times(lambda: SV.vinter_grid(ak, va, bk, vb))
+        plain_ms = cuda_ms(lambda: SV.vinter_grid_ref(ak, va, bk, vb))
+        text = f"{_times_text(times)}, {plain_ms:.4f} ms plain, {text}"
+        report["vinter"].update({f"grid_long_{n}": v for n, v in times.items()},
+                                grid_long_plain_ms=plain_ms, grid_long_bound_ms=bound_ms)
+    print(f"[parity] {label} ops {list(VINTER_OPS)}: dyadic values equal bit for bit, "
+          f"values in [0.5, 2) within rtol 1e-6; {text}", flush=True)
 
 
 def dense_matrix(n: int, density: float, seed: int):
@@ -1021,10 +1088,74 @@ def dense_matrix(n: int, density: float, seed: int):
                     rng.normal(size=(n, n)), 0.0).astype(np.float32)
 
 
+def ttv_block(t, n_keys: int, fiber_block: int = 512):
+    """The first fibre block sparse.ttv gives S_VINTER for the CSF tensor
+    ``t`` against phase_sparse's dense vector of ``n_keys`` keys, on the
+    card: fibre keys and values (fiber_block, cap) and the vector's (1,
+    cap_v), which ttv expands at row stride 0."""
+    import numpy as np
+
+    from repro_torch.core.stream import round_capacity
+    f1 = min(fiber_block, t.num_fibers)
+    lens = np.diff(t.fiber_ptr)
+    cap = round_capacity(int(lens.max()))
+    fk = np.full((f1, cap), SENTINEL, np.int32)
+    fv = np.zeros((f1, cap), np.float32)
+    for i in range(f1):
+        lo, hi = t.fiber_ptr[i], t.fiber_ptr[i + 1]
+        fk[i, : hi - lo], fv[i, : hi - lo] = t.k_ids[lo:hi], t.vals[lo:hi]
+    cap_v = round_capacity(n_keys)
+    vk = np.full((1, cap_v), SENTINEL, np.int32)
+    vv = np.zeros((1, cap_v), np.float32)
+    vk[0, :n_keys] = np.arange(n_keys)
+    vv[0, :n_keys] = np.random.default_rng(4).normal(size=n_keys)
+    return tuple(torch.from_numpy(x).to(DEVICE) for x in (fk, fv, vk, vv))
+
+
+def _time_vinter_on_ttv_block(SV, report):
+    """The paired form at the shape ttv gives it (its only caller): the
+    first 512 fibres of chicago-s (caps 128, ~3.5 live keys a row) against
+    the 240-key vector at row stride 0, op mac; beside torch.sparse.mm of
+    the fibres (a sparse (512, 240) matrix) by the vector. These are the
+    kernel line's main numbers."""
+    from repro_torch.sparse import random_csf
+    _, shape, nnz = SPARSE_TENSORS[0]
+    fk, fv, vk, vv = ttv_block(random_csf(shape, nnz, seed=3), shape[2])
+    n = fk.shape[0]
+    args = (fk, fv, vk.expand(n, -1), vv.expand(n, -1))
+    live = fk != SENTINEL
+    fibres = torch.sparse_coo_tensor(torch.stack([live.nonzero()[:, 0], fk[live]]), fv[live],
+                                     (n, shape[2])).coalesce()
+    vec = vv[0, : shape[2], None]
+    got, want = SV.vinter(*args), SV.vinter_ref(*args)
+    library = torch.sparse.mm(fibres, vec)[:, 0]
+    torch.cuda.synchronize()
+    _record(report, "vinter", _max_err([got], [want]))
+    # normal values cancel in a fibre's sum, and the plain version sums in
+    # f32: the sparse phase's tolerance, against both
+    for name, other in (("its plain version", want), ("torch.sparse.mm", library)):
+        if not torch.allclose(got, other, rtol=1e-5, atol=1e-6):
+            raise SystemExit(f"[parity] MISMATCH vinter ttv block against {name}: "
+                             f"{(got - other).abs().max().item()}")
+    times = kernel_times(lambda: SV.vinter(*args), reps=50)
+    plain_ms = cuda_ms(lambda: SV.vinter_ref(*args), reps=50)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(fibres, vec), reps=50)
+    bound_ms, by = _vinter_bound(fk, vk, n)       # the vector read once
+    print(f"[parity] vinter ttv block: chicago-s fibres {n} x {fk.shape[1]} against the "
+          f"{shape[2]}-key vector ({vk.shape[1]}, row stride 0), {int(live.sum())} live "
+          f"keys, mac: {_times_text(times)}, {plain_ms:.4f} ms plain, {library_ms:.4f} ms "
+          f"torch.sparse.mm, bound {bound_ms:.3g} ms ({by})", flush=True)
+    report["vinter"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                            library_ms=library_ms)
+
+
 def _time_vinter_on_spmm_block(SV, report):
     """S_VINTER at the shape spmm gives it, on real data: the first 64 x 64
-    block of email-core's row x column pairs (B = 4096, caps 128, op mac),
-    beside torch.sparse.mm of the same block (the library's sparse product)."""
+    block of email-core's row x column pairs (caps 128, op mac), in the
+    grid form spmm calls (grid_* keys) and in the paired form (B = 4096
+    pairs formed by repeat_interleave / repeat, as spmm did before the grid
+    form: spmm_pair_* keys, kept to compare with a parent), beside
+    torch.sparse.mm of the same block (the library's sparse product)."""
     import numpy as np
 
     from repro_torch.sparse import from_dense
@@ -1035,57 +1166,76 @@ def _time_vinter_on_spmm_block(SV, report):
     ak, av, bk, bv = (torch.from_numpy(x).to(DEVICE)
                       for x in (*a.padded_rows(rows), *b.padded_rows(cols)))
     nr, nc = len(rows), len(cols)
-    args = (ak.repeat_interleave(nc, 0), av.repeat_interleave(nc, 0), bk.repeat(nr, 1),
-            bv.repeat(nr, 1))
-    times = kernel_times(lambda: SV.vinter(*args), reps=50)
-    plain_ms = cuda_ms(lambda: SV.vinter_ref(*args), reps=50)
-    bound_ms, by = _vinter_bound(args[0], args[2], nr * nc)
     a_sp = torch.from_numpy(a_d[rows]).to(DEVICE).to_sparse()
     b_sp = torch.from_numpy(b_d[:, cols]).to(DEVICE).to_sparse()
-    block = torch.sparse.mm(a_sp, b_sp).to_dense().reshape(-1)
-    got = SV.vinter(*args)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, block, rtol=1e-5, atol=1e-6):
-        raise SystemExit(f"[parity] vinter spmm block != torch.sparse.mm: "
-                         f"{(got - block).abs().max().item()}")
+    block = torch.sparse.mm(a_sp, b_sp).to_dense()
     library_ms = cuda_ms(lambda: torch.sparse.mm(a_sp, b_sp), reps=50)
-    print(f"[parity] vinter email-core spmm block B={nr * nc} caps=({ak.shape[1]},"
-          f"{bk.shape[1]}) mac: {_times_text(times)}, {plain_ms:.4f} ms plain, "
-          f"{library_ms:.4f} ms torch.sparse.mm of the block, bound {bound_ms:.4f} ms",
-          flush=True)
-    report["vinter"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                            library_ms=library_ms)
+    args = (ak.repeat_interleave(nc, 0), av.repeat_interleave(nc, 0), bk.repeat(nr, 1),
+            bv.repeat(nr, 1))
+    forms = [("vinter", "spmm_pair_", lambda: SV.vinter(*args),
+              lambda: SV.vinter_ref(*args), _vinter_bound(args[0], args[2], nr * nc))]
+    if hasattr(SV, "vinter_grid"):
+        grid = (ak, av, bk, bv)
+        forms.append(("vinter_grid", "grid_", lambda: SV.vinter_grid(*grid),
+                      lambda: SV.vinter_grid_ref(*grid), _vinter_grid_bound(ak, bk)))
+    for name, key, run, plain, (bound_ms, by) in forms:
+        got = run().reshape(nr, nc)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, block, rtol=1e-5, atol=1e-6):
+            raise SystemExit(f"[parity] {name} spmm block != torch.sparse.mm: "
+                             f"{(got - block).abs().max().item()}")
+        times = kernel_times(run, reps=50)
+        plain_ms = cuda_ms(plain, reps=50)
+        print(f"[parity] {name} email-core spmm block {nr} x {nc} caps=({ak.shape[1]},"
+              f"{bk.shape[1]}) mac: {_times_text(times)}, {plain_ms:.4f} ms plain, "
+              f"{library_ms:.4f} ms torch.sparse.mm of the block, bound {bound_ms:.3g} ms "
+              f"({by})", flush=True)
+        report["vinter"].update({f"{key}{n}": v for n, v in times.items()},
+                                **{f"{key}plain_ms": plain_ms, f"{key}bound_ms": bound_ms,
+                                   f"{key}bound_by": by, f"{key}library_ms": library_ms})
 
 
 def _bytes_bound(nbytes: int) -> tuple[float, str]:
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def offset_view(x, offset: int):
+    """x's values as a contiguous view ``offset`` elements into a flat
+    buffer: a storage offset that puts its rows off 16-byte boundaries."""
+    flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:] = x.reshape(-1)
+    return flat[offset:].view(x.shape)
+
+
 def _parity_compact(CP, report, gen, B, cap, out_cap, densities):
     """compact_rows bit for bit at one shape over keep densities, with keep
-    set on SENTINEL slots (they must not count), an all-dead row, and the
-    mask as bool and as int32; timed at COMPACT_TIMED beside the masked
-    sort of the JAX host path."""
+    set on SENTINEL slots (they must not count), an all-dead row, the mask
+    as bool and as int32, and both arrays also as views at a storage offset
+    (the scalar loads); timed at COMPACT_TIMED and COMPACT_WARP beside the
+    masked sort of the JAX host path."""
     a = sorted_rows(gen, B, cap, 4 * cap)
     for density in densities:
         keep = torch.rand((B, cap), generator=gen, device=DEVICE) < density
         keep[1] = False
         for k in (keep, torch.where(keep, 3, -1).to(torch.int32)):
-            got = CP.compact_rows(a, k, out_cap)
             want = CP.compact_rows_ref(a, k, out_cap)
-            torch.cuda.synchronize()
-            err = max((got[0] - want[0]).abs().max().item(),
-                      (got[1] - want[1]).abs().max().item())
-            _record(report, "compact_rows", err)
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])) \
-                    or got[1][1] != 0:
-                raise SystemExit(f"[parity] MISMATCH compact_rows B={B} cap={cap} "
-                                 f"out_cap={out_cap} density={density} keep {k.dtype}: {err}")
+            for ta, tk in ((a, k), (offset_view(a, 1), offset_view(k, 1))):
+                got = CP.compact_rows(ta, tk, out_cap)
+                torch.cuda.synchronize()
+                err = max((got[0] - want[0]).abs().max().item(),
+                          (got[1] - want[1]).abs().max().item())
+                _record(report, "compact_rows", err)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])) \
+                        or got[1][1] != 0:
+                    raise SystemExit(f"[parity] MISMATCH compact_rows B={B} cap={cap} "
+                                     f"out_cap={out_cap} density={density} keep {k.dtype} "
+                                     f"storage offset {ta.storage_offset()}: {err}")
         cut = int((want[1] > out_cap).sum())
         print(f"[parity] compact_rows B={B} cap={cap} out_cap={out_cap} density "
-              f"{density}: equal bit for bit (bool and int32 keep); {cut} rows cut at "
-              f"out_cap", flush=True)
-        if (B, cap, out_cap, density) != COMPACT_TIMED:
+              f"{density}: equal bit for bit (bool and int32 keep, also at a storage "
+              f"offset); {cut} rows cut at out_cap", flush=True)
+        shape = (B, cap, out_cap, density)
+        if shape not in (COMPACT_TIMED, COMPACT_WARP):
             continue
         times = kernel_times(lambda: CP.compact_rows(a, keep, out_cap))
         plain_ms = cuda_ms(lambda: CP.compact_rows_ref(a, keep, out_cap))
@@ -1103,8 +1253,34 @@ def _parity_compact(CP, report, gen, B, cap, out_cap, densities):
         print(f"[parity] compact_rows B={B} cap={cap} out_cap={out_cap} density "
               f"{density}: {_times_text(times)}, {plain_ms:.4f} ms plain, {library_ms:.4f} "
               f"ms masked sort (torch.sort), bound {bound_ms:.4f} ms", flush=True)
-        report["compact_rows"].update(**times, plain_ms=plain_ms, bound_ms=bound_ms,
-                                      bound_by=by, library_ms=library_ms)
+        key = "" if shape == COMPACT_TIMED else "warp_"
+        report["compact_rows"].update({f"{key}{n}": v for n, v in times.items()},
+                                      **{f"{key}plain_ms": plain_ms,
+                                         f"{key}bound_ms": bound_ms, f"{key}bound_by": by,
+                                         f"{key}library_ms": library_ms})
+
+
+def _compact_team_sweep(CP, gen) -> None:
+    """compact_rows with each team forced at COMPACT_SWEEP's caps (B 2048,
+    out_cap = cap, density 0.3): where the wrapper's warp/block switch goes."""
+    if not hasattr(CP, "WARP_MAX_CAP"):
+        return
+    switch = CP.WARP_MAX_CAP
+    try:
+        for cap in COMPACT_SWEEP:
+            a = sorted_rows(gen, 2048, cap, 4 * cap)
+            keep = torch.rand((2048, cap), generator=gen, device=DEVICE) < 0.3
+            ms = {}
+            for team, limit in (("warp", 1 << 30), ("block", 0)):
+                CP.WARP_MAX_CAP = limit
+                ms[team] = kernel_times(lambda: CP.compact_rows(a, keep, cap),
+                                        host_calls=10)["device_ms"]
+            print(f"[parity] compact_rows team sweep B=2048 cap={cap}: warp a row "
+                  f"{ms['warp']:.4f} ms device, block a row {ms['block']:.4f} ms -> "
+                  f"{min(ms, key=ms.get)} (the wrapper: "
+                  f"{'warp' if cap <= switch else 'block'})", flush=True)
+    finally:
+        CP.WARP_MAX_CAP = switch
 
 
 def _parity_bitmap(BM, report, gen, B, words):
@@ -1162,9 +1338,14 @@ def phase_parity() -> dict:
         _parity_agg(K, report, gen, *shape)
     for shape in VINTER_SHAPES:
         _parity_vinter(SV, report, gen, *shape)
+    if hasattr(SV, "vinter_grid"):
+        for shape in GRID_SHAPES:
+            _parity_vinter_grid(SV, report, gen, *shape)
+    _time_vinter_on_ttv_block(SV, report)
     _time_vinter_on_spmm_block(SV, report)
     for (B, cap, out_cap), densities in COMPACT_SHAPES:
         _parity_compact(CP, report, gen, B, cap, out_cap, densities)
+    _compact_team_sweep(CP, gen)
     for shape in BITMAP_SHAPES:
         _parity_bitmap(BM, report, gen, *shape)
     _parity_xinter(gen)
@@ -1355,48 +1536,58 @@ def phase_weighted(graphs: dict, counts: dict) -> dict:
 
 def phase_sparse() -> dict:
     """spmsp_matmul and ttv at the Table VI sizes against float64 numpy
-    (rtol 1e-5, atol 1e-6)."""
+    (rtol 1e-5, atol 1e-6), each product's wall and S_VINTER launches: one
+    a (row block, column block) for spmm (the grid form where the tree has
+    it) and one a fibre block for ttv (the paired form), as in the JAX
+    package."""
     import numpy as np
 
     from repro_torch.sparse import from_dense, random_csf, spmsp_matmul, ttv
-    vinter = wrappers()["vinter"]
+    counters = [fn for name, fn in wrappers().items() if name in ("vinter", "vinter_grid")]
+
+    def launched() -> int:
+        return sum(fn.launches for fn in counters)
     zero_launches()
     for name, n, density in SPARSE_MATRICES:
         a_d, b_d = dense_matrix(n, density, 1), dense_matrix(n, density, 2)
         a, b = from_dense(a_d), from_dense(b_d, "csc")
-        n0 = vinter.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        c = spmsp_matmul(a, b, device=DEVICE)
-        dt = time.perf_counter() - t0
+        n0 = launched()
+        c, dt = _timed(lambda: spmsp_matmul(a, b, device=DEVICE))
+        blocks = -(-int((np.diff(a.indptr) > 0).sum()) // 64) \
+            * -(-int((np.diff(b.indptr) > 0).sum()) // 64)
         want = a_d.astype(np.float64) @ b_d.astype(np.float64)
         err = float(np.abs(c - want).max())
         print(f"[sparse] spmm {name} n={n} density={density}: nnz {a.nnz} x {b.nnz}, "
-              f"{dt:.3f}s wall, vinter launches {vinter.launches - n0}, max abs err "
-              f"{err:.3g} against float64 numpy", flush=True)
+              f"{dt:.3f}s wall, vinter launches {launched() - n0} ({blocks} blocks), max "
+              f"abs err {err:.3g} against float64 numpy", flush=True)
         if not np.allclose(c, want, rtol=1e-5, atol=1e-6):
             raise SystemExit(f"[sparse] MISMATCH spmm {name}: {err}")
+        if launched() - n0 != blocks:
+            raise SystemExit(f"[sparse] spmm {name}: {launched() - n0} launches, not one "
+                             f"a block")
     for name, shape, nnz in SPARSE_TENSORS:
         t = random_csf(shape, nnz, seed=3)
         vec = np.random.default_rng(4).normal(size=shape[2]).astype(np.float32)
-        n0 = vinter.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ii, jj, vv = ttv(t, np.arange(shape[2], dtype=np.int32), vec, device=DEVICE)
-        dt = time.perf_counter() - t0
+        n0 = launched()
+        (ii, jj, vv), dt = _timed(lambda: ttv(t, np.arange(shape[2], dtype=np.int32), vec,
+                                              device=DEVICE))
         dense = np.zeros(shape)
         fib = np.repeat(np.arange(t.num_fibers), np.diff(t.fiber_ptr))
         dense[t.i_ids[fib], t.j_ids[fib], t.k_ids] = t.vals
         want = (dense @ vec.astype(np.float64))[ii, jj]
         err = float(np.abs(vv - want).max())
         print(f"[sparse] ttv {name} {shape} nnz={nnz}: {t.num_fibers} fibres, {dt:.3f}s "
-              f"wall, vinter launches {vinter.launches - n0}, max abs err {err:.3g} "
-              "against float64 numpy", flush=True)
+              f"wall, vinter launches {launched() - n0}, max abs err {err:.3g} against "
+              "float64 numpy", flush=True)
         if not np.allclose(vv, want, rtol=1e-5, atol=1e-6):
             raise SystemExit(f"[sparse] MISMATCH ttv {name}: {err}")
-    if vinter.launches <= 0:
-        raise SystemExit("[sparse] vinter was never launched")
-    return {"vinter": vinter.launches}
+        if launched() - n0 != -(-t.num_fibers // 512):
+            raise SystemExit(f"[sparse] ttv {name}: not one launch a fibre block")
+    per = {fn.__name__: fn.launches for fn in counters}
+    print(f"[sparse] launches by form: {per}", flush=True)
+    if launched() <= 0 or any(v <= 0 for v in per.values()):
+        raise SystemExit("[sparse] a vinter form was never launched")
+    return {"vinter": launched(), "vinter_grid": per.get("vinter_grid", 0)}
 
 
 def _timed(run):
@@ -1612,7 +1803,10 @@ KERNEL_OWNERS = (
     # one-block-a-row expand_kernel(...)
     (r"expand_kernel[<(]", "intersect_expand"),
     (r"expand_items_kernel", "expand_items"),
-    (r"vinter_kernel", "vinter"),
+    # S_VINTER's two kernels serve both forms: <true> is the grid's; the
+    # parent's untemplated vinter_kernel is the paired form's
+    (r"vinter_(short_)?kernel<true>", "vinter_grid"),
+    (r"vinter_(short_)?kernel", "vinter"),
     (r"compact_rows_kernel", "compact_rows"),
     (r"bitmap_and_count_kernel", "bitmap_and_count"),
 )
@@ -1662,8 +1856,11 @@ def _profile(label: str, run) -> None:
 
 
 def phase_profile(graphs: dict) -> None:
-    """Where mico's queries spend the card's time, counted and weighted."""
+    """Where mico's queries spend the card's time, counted and weighted; then
+    mico's 4-clique on the host-compaction path (compact_rows) and
+    email-core's spmm (vinter)."""
     from repro_torch import Miner
+    from repro_torch.sparse import from_dense, spmsp_matmul
     miner = Miner(graphs["mico", 1.0], device=DEVICE)
     for query in PROFILED:
         _profile(f"mico x1.0 {query}", lambda q=query: miner.count(q))
@@ -1671,6 +1868,11 @@ def phase_profile(graphs: dict) -> None:
     for query, op in PROFILED_WEIGHTED:
         _profile(f"mico x1.0 {query} {op} (weighted)",
                  lambda q=query, o=op: wminer.aggregate(q, o))
+    host = Miner(graphs["mico", 1.0], device=DEVICE, device_compact=False)
+    _profile("mico x1.0 4-clique (host path)", lambda: host.count("4-clique"))
+    a_d, b_d = dense_matrix(1005, 0.025, 1), dense_matrix(1005, 0.025, 2)
+    a, b = from_dense(a_d), from_dense(b_d, "csc")
+    _profile("spmm email-core", lambda: spmsp_matmul(a, b, device=DEVICE))
 
 
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
@@ -1735,6 +1937,9 @@ def main(argv=None) -> int:
     if run != set(PHASES):
         print(json.dumps({"phases": phases, "times": report}), flush=True)
         return 0
+    # vinter's launches are both forms' (the grid form's also as
+    # grid_launches); its grid_* keys time the grid form
+    report["vinter"]["grid_launches"] = launches["vinter_grid"]
     rows = [{"name": name, **KERNELS[name], "launches": launches[name],
              "parity": True, **report[name]} for name in KERNELS]
     print(json.dumps({"kernels": rows}))

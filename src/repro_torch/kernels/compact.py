@@ -14,7 +14,11 @@ int32 (the mark kernel's output, which ``ops.xinter`` passes as it is).
 
 The wrapper picks its path by the device of its tensors: a CPU tensor takes
 the plain version (``compact_rows_ref`` = ``core.batch.batch_compact_rows``);
-a CUDA tensor launches the kernel on the current stream, or raises.
+a CUDA tensor launches the kernel on the current stream, or raises. On the
+card it also picks the kernel's team and loads: a warp a row for caps up to
+``WARP_MAX_CAP``, else a block a row; 16-byte loads where ``cap`` is a
+multiple of 4 and both arrays start on the boundary those loads need, else
+four scalar loads a step (a view with a storage offset).
 ``compact_rows.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -26,6 +30,9 @@ from repro_torch.core.batch import batch_compact_rows
 from .build import launch
 
 KEEP_BYTES = {torch.bool: 1, torch.int32: 4}
+# rows of at most this many slots run a warp each (4 a block), longer rows a
+# 256-thread block each: the switch measured by chip_smoke.py's team sweep
+WARP_MAX_CAP = 1024
 
 
 def compact_rows_ref(a, keep, out_cap: int):
@@ -58,8 +65,11 @@ def compact_rows(a, keep, out_cap: int):
     rows = torch.empty((a.shape[0], out_cap), dtype=torch.int32, device=a.device)
     counts = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
     if a.shape[0]:
+        cap, nbytes = a.shape[1], KEEP_BYTES[keep.dtype]
+        vec = cap % 4 == 0 and a.data_ptr() % 16 == 0 \
+            and keep.data_ptr() % (4 * nbytes) == 0
         launch("compact", "repro_compact_rows", a.device, (a, keep, rows, counts),
-               (*a.shape, out_cap, KEEP_BYTES[keep.dtype]))
+               (*a.shape, out_cap, nbytes, int(cap <= WARP_MAX_CAP), int(vec)))
         compact_rows.launches += 1
     return rows, counts
 

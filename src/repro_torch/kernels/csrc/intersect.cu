@@ -348,26 +348,6 @@ struct RefWindows {
   int a_lo, a_hi;
 };
 
-// Shared-memory words a window of n words takes in a staging slice
-// (stage_async's alignment slack, rounded to keep the next one aligned).
-__device__ __host__ __forceinline__ int stage_need(int n) { return (n + 6) & ~3; }
-
-// Lower bounds of four keys in row[0, n), in lockstep: the steps depend on
-// n only, so the four searches' loads overlap and a warp never diverges.
-__device__ __forceinline__ void lower_bound4(const int* __restrict__ row, int n,
-                                             const int (&key)[4], int (&pos)[4]) {
-  int base[4] = {0, 0, 0, 0};
-  int len = n;
-  while (len > 1) {
-    const int half = len >> 1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) base[j] = row[base[j] + half] < key[j] ? base[j] + half : base[j];
-    len -= half;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) pos[j] = base[j] + (len == 1 && row[base[j]] < key[j]);
-}
-
 // The keys of slots s0 .. s0 + 3 of a row (0 past [a_lo, a_hi)): one
 // 16-byte load of an aligned padded word (kWord, when it meets the
 // window), else four loads.

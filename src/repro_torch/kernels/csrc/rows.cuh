@@ -154,6 +154,26 @@ __device__ __forceinline__ void async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Shared-memory words a row of n words takes in a staging slice
+// (stage_async's alignment slack, rounded to keep the next one aligned).
+__device__ __host__ __forceinline__ int stage_need(int n) { return (n + 6) & ~3; }
+
+// Lower bounds of four keys in row[0, n), in lockstep: the steps depend on
+// n only, so the four searches' loads overlap and a warp never diverges.
+__device__ __forceinline__ void lower_bound4(const int* __restrict__ row, int n,
+                                             const int (&key)[4], int (&pos)[4]) {
+  int base[4] = {0, 0, 0, 0};
+  int len = n;
+  while (len > 1) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) base[j] = row[base[j] + half] < key[j] ? base[j] + half : base[j];
+    len -= half;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) pos[j] = base[j] + (len == 1 && row[base[j]] < key[j]);
+}
+
 // Where a thread's kept keys go in one step of a team that packs
 // survivors in order: each thread holds four consecutive keys' keep flags,
 // threads in rank order. Returns (kept by lower ranks, kept by the whole
@@ -161,10 +181,13 @@ __device__ __forceinline__ void async_wait_all() {
 // team (kWarp false) adds each warp's total through `warp_kept`, one slot a
 // warp, a barrier between the write and the read. Give consecutive steps
 // alternate `warp_kept` buffers: a step's writes then never meet a slower
-// warp's reads of the step before, and one barrier a step suffices. Every
-// thread of the team calls it.
-template <bool kWarp>
-__device__ __forceinline__ int2 team_pack_offsets(const int (&keep)[4], int* warp_kept) {
+// warp's reads of the step before, and one barrier a step suffices. With
+// kFlag, `*flag` comes in as this thread's flag and goes out as the OR over
+// the team, riding the same words (a warp's total is at most 128, so bit 16
+// carries its flag). Every thread of the team calls it.
+template <bool kWarp, bool kFlag = false>
+__device__ __forceinline__ int2 team_pack_offsets(const int (&keep)[4], int* warp_kept,
+                                                  bool* flag = nullptr) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int before = 0, total = 0;
@@ -174,18 +197,23 @@ __device__ __forceinline__ int2 team_pack_offsets(const int (&keep)[4], int* war
     before += __popc(word & below);
     total += __popc(word);
   }
+  bool any = false;
+  if constexpr (kFlag) any = __any_sync(kFull, *flag);
   if constexpr (!kWarp) {
     const int warp = threadIdx.x >> 5;
-    if (lane == 0) warp_kept[warp] = total;
+    if (lane == 0) warp_kept[warp] = total | (static_cast<int>(any) << 16);
     __syncthreads();
     total = 0;
     const int nwarps = blockDim.x >> 5;
     for (int w = 0; w < nwarps; ++w) {
-      const int c = warp_kept[w];
+      int c = warp_kept[w];
+      if constexpr (kFlag) any = any || (c >> 16);
+      c &= 0xffff;
       before += w < warp ? c : 0;
       total += c;
     }
   }
+  if constexpr (kFlag) *flag = any;
   return make_int2(before, total);
 }
 

@@ -19,7 +19,7 @@ from .intersect import (expand_items, intersect_count, intersect_count_csr,
                         intersect_mark_csr, intersect_multi, intersect_multi_agg,
                         intersect_multi_agg_csr, intersect_multi_csr,
                         intersect_multi_mark_csr, intersect_sub_count_csr)
-from .svinter import vinter
+from .svinter import vinter, vinter_grid
 
 
 def xinter_count(a, b, bounds=None, lbounds=None):
@@ -245,9 +245,15 @@ def xlevel_agg_csr(indptr, indices, edge_values, vbs, caps_b, pol, scale,
 def xvinter(a_keys, a_vals, b_keys, b_vals, op: str = "mac"):
     """Batched S_VINTER (SVPU, §IV-E): per row, the op-sum over value pairs
     of intersected keys ('mac' Σ va·vb, a sparse dot; 'max' / 'min' Σ of the
-    pair's max / min) — the entry ``sparse.spmm`` and ``sparse.ttv`` go
-    through."""
+    pair's max / min) — the entry ``sparse.ttv`` goes through."""
     return vinter(a_keys, a_vals, b_keys, b_vals, op)
+
+
+def xvinter_grid(a_keys, a_vals, b_keys, b_vals, op: str = "mac"):
+    """``xvinter`` over every (A row, B row) pair of two stacks -> (nr, nc),
+    no pair's rows copied — the entry ``sparse.spmm`` goes through, once per
+    (row block, column block)."""
+    return vinter_grid(a_keys, a_vals, b_keys, b_vals, op)
 
 
 def xvinter_mac(a_keys, a_vals, b_keys, b_vals, op: str = "mac"):

@@ -8,15 +8,16 @@ evaluated in one kernel launch. Rows and columns with no entry are skipped
 (the paper's dependency bound |A ∩ B| <= min lengths, used to elide work).
 
 The padded rows of A and columns of B go to the device once; each block's
-stream pairs are formed there, and the output block stays there until one
-copy back at the end.
+kernel (``ops.xvinter_grid``) reads the block's rows and columns as they lie
+and evaluates every pair of them, so no pair's streams are copied, and the
+output block stays on the device until one copy back at the end.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import xvinter
+from repro_torch.kernels.ops import xvinter_grid
 
 from .matrix import SparseCSC, SparseCSR
 
@@ -39,13 +40,8 @@ def spmsp_matmul(a: SparseCSR, b: SparseCSC, row_block: int = 64,
                     device=ak.device)
     for r0 in range(0, rows_alive.size, row_block):
         rk, rv = ak[r0: r0 + row_block], av[r0: r0 + row_block]
-        nr = rk.shape[0]
         for c0 in range(0, cols_alive.size, col_block):
             ck, cv = bk[c0: c0 + col_block], bv[c0: c0 + col_block]
-            nc = ck.shape[0]
-            # all (row, col) pairs of the block, row-major
-            vals = xvinter(rk.repeat_interleave(nc, dim=0), rv.repeat_interleave(nc, dim=0),
-                           ck.repeat(nr, 1), cv.repeat(nr, 1))
-            c[r0: r0 + nr, c0: c0 + nc] = vals.view(nr, nc)
+            c[r0: r0 + rk.shape[0], c0: c0 + ck.shape[0]] = xvinter_grid(rk, rv, ck, cv)
     out[np.ix_(rows_alive, cols_alive)] = c.cpu().numpy()
     return out

@@ -11,6 +11,15 @@ def T(x):
     return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
 
 
+def offset_view(x, offset):
+    """x's values as a contiguous view ``offset`` elements into a flat buffer
+    on x's device (a storage offset: on the card, a row start off a 16-byte
+    boundary)."""
+    flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:] = x.reshape(-1)
+    return flat[offset:].view(x.shape)
+
+
 def make_rows(rng, batch, cap, hi=4000, empty_prob=0.15):
     """Sorted SENTINEL-padded int32 sets, some rows empty."""
     out = np.full((batch, cap), SENTINEL, np.int32)

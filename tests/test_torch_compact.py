@@ -20,7 +20,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bitmap import TW, bitmap_and_count, bitmap_and_count_ref, keys_to_bitmap
 from repro_torch.kernels.compact import compact_rows
 
-from _torch_rows import T, make_case, make_rows
+from _torch_rows import T, make_case, make_rows, offset_view
 
 
 def compact_case(seed, batch, cap, density):
@@ -53,6 +53,27 @@ def test_compact_rows_equals_jax_kernel_and_plain_version(batch, cap, out_cap, d
     ikeep = np.where(keep, np.random.default_rng(1).integers(1, 4, keep.shape), -1)
     r2, c2 = compact_rows(T(a), T(ikeep.astype(np.int32)), out_cap)
     assert torch.equal(r2, rows) and torch.equal(c2, counts)
+
+
+@pytest.mark.parametrize("batch,cap,out_cap,offset", [
+    (6, 1, 1, 0), (7, 3, 2, 1), (9, 5, 8, 0), (8, 127, 64, 3), (5, 130, 130, 1),
+    (4, 256, 300, 2)])
+def test_compact_rows_at_odd_caps_and_offset_views_equals_jax_kernel(batch, cap, out_cap,
+                                                                     offset):
+    """Caps that are not multiples of 4 and rows on offset views (the
+    kernel's scalar-load path on the card) give the JAX kernel's rows and
+    counts, bool and int32 keep masks alike."""
+    a, keep = compact_case(batch + cap + offset, batch, cap, 0.5)
+    jr, jc = compact_rows_pallas(jnp.asarray(a), jnp.asarray(keep), out_cap=out_cap,
+                                 interpret=True)
+    ikeep = np.where(keep, 2, 0).astype(np.int32)
+    for k in (T(keep), T(ikeep)):
+        ta, tk = offset_view(T(a), offset), offset_view(k, offset)
+        assert ta.storage_offset() == offset and ta.is_contiguous() and tk.is_contiguous()
+        rows, counts = compact_rows(ta, tk, out_cap)
+        np.testing.assert_array_equal(rows.numpy(), np.asarray(jr))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    assert counts[2] == 0 and counts[3] == (a[3] != SENTINEL).sum()
 
 
 def test_compact_rows_equals_masked_sort():

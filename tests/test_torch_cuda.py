@@ -20,7 +20,7 @@ from repro_torch.sparse import from_dense, random_csf, spmsp_matmul, ttv
 
 from _torch_rows import (AGG_OPS, AGG_QUERIES, T, make_agg_case, make_bounds, make_case,
                          make_csr, make_level_case, make_rows, make_values,
-                         make_vinter_case, sum_is_exact)
+                         make_vinter_case, offset_view, sum_is_exact)
 
 pytestmark = pytest.mark.cuda
 
@@ -255,9 +255,11 @@ def test_sparse_on_card_equals_cpu(cuda):
     a_d = np.where(rng.random((90, 70)) < 0.1, rng.normal(size=(90, 70)), 0).astype(np.float32)
     b_d = np.where(rng.random((70, 80)) < 0.1, rng.normal(size=(70, 80)), 0).astype(np.float32)
     a, b = from_dense(a_d), from_dense(b_d, "csc")
-    n = SV.vinter.launches
+    n, n_pairs = SV.vinter_grid.launches, SV.vinter.launches
     c = spmsp_matmul(a, b, row_block=16, col_block=16)
-    assert SV.vinter.launches > n
+    rows, cols = int((a_d != 0).any(1).sum()), int((b_d != 0).any(0).sum())
+    assert SV.vinter_grid.launches - n == -(-rows // 16) * -(-cols // 16)
+    assert SV.vinter.launches == n_pairs          # spmm forms no pairs
     np.testing.assert_allclose(c, spmsp_matmul(a, b, 16, 16, device="cpu"), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(c, a_d.astype(np.float64) @ b_d, rtol=1e-5, atol=1e-6)
@@ -265,6 +267,7 @@ def test_sparse_on_card_equals_cpu(cuda):
     keys = np.arange(40, dtype=np.int32)
     vals = rng.normal(size=40).astype(np.float32)
     got, want = ttv(t, keys, vals, fiber_block=64)[2], ttv(t, keys, vals, 64, device="cpu")[2]
+    assert SV.vinter.launches - n_pairs == -(-t.num_fibers // 64)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -286,6 +289,108 @@ def test_compact_rows_kernel_equals_plain_version(cuda, B, cap, out_cap, density
         want = CP.compact_rows_ref(T(a), T(k), out_cap)
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
         assert got[1][1] == 0 and (got[0][1] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("team", ["warp", "block"])
+@pytest.mark.parametrize("cap", [1, 3, 127, 128, 2048])
+def test_compact_rows_kernel_on_every_path(cuda, monkeypatch, cap, team, offset):
+    """Each team (forced by the wrapper's switch) and each load path (16-byte
+    loads; scalar loads at caps not a multiple of 4 and on offset views),
+    bool and int32 keep, keep set on SENTINEL slots, all-dead rows, and
+    out_cap below, equal to and above the most kept."""
+    monkeypatch.setattr(CP, "WARP_MAX_CAP", 1 << 30 if team == "warp" else 0)
+    B = 67
+    rng = np.random.default_rng(cap + offset)
+    a = make_rows(rng, B, cap, 4 * cap + 4)
+    keep = rng.random((B, cap)) < 0.6
+    keep[1] = False                        # an all-dead row
+    keep[2] = True                         # every slot, SENTINEL ones too
+    a[3] = SENTINEL
+    keep[3] = True                         # no key, every flag set
+    for k in (keep, np.where(keep, 5, -2).astype(np.int32)):
+        kmax = int(CP.compact_rows_ref(T(a), T(k), cap)[1].max())
+        for out_cap in sorted({max(1, kmax // 2), max(1, kmax), kmax + 3}):
+            ta, tk = offset_view(T(a).to(cuda), offset), offset_view(T(k).to(cuda), offset)
+            n = CP.compact_rows.launches
+            got = CP.compact_rows(ta, tk, out_cap)
+            torch.cuda.synchronize()
+            assert CP.compact_rows.launches == n + 1
+            want = CP.compact_rows_ref(T(a), T(k), out_cap)
+            assert torch.equal(got[0].cpu(), want[0]), (out_cap, k.dtype)
+            assert torch.equal(got[1].cpu(), want[1]), (out_cap, k.dtype)
+            assert got[1][1] == 0 and got[1][3] == 0 and (got[0][1] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("op", ("mac", "max", "min"))
+@pytest.mark.parametrize("B,cap_a,cap_b", [(333, 128, 128), (100, 256, 640), (64, 512, 2048),
+                                           (9, 256, 8192), (5, 128, 16384)])
+def test_vinter_kernel_staging_paths(cuda, B, cap_a, cap_b, op):
+    """Short A rows (cap_a 128: one key a lane) and longer ones (four keys
+    a lane in lockstep, over one and several 128-slot groups), B's row
+    searched where it lies, its own a pair or one row at row stride 0, up
+    to caps past shared memory (8192, 16384); empty rows on both sides.
+    Dyadic values bit for bit, values in [0.5, 2) within rtol 1e-6."""
+    for dyadic in (True, False):
+        a, va, b, vb = make_vinter_case(B + cap_a + cap_b, B, cap_a, cap_b, dyadic=dyadic)
+        a[1], va[1], b[2], vb[2] = SENTINEL, 0, SENTINEL, 0
+        a, va, b, vb = (T(x).to(cuda) for x in (a, va, b, vb))
+        for bk, bv in ((b, vb), (b[:1].expand(B, cap_b), vb[:1].expand(B, cap_b)),
+                       (b[2:3].expand(B, cap_b), vb[2:3].expand(B, cap_b))):
+            n = SV.vinter.launches
+            got = SV.vinter(a, va, bk, bv, op)
+            torch.cuda.synchronize()
+            assert SV.vinter.launches == n + 1
+            want = SV.vinter_ref(a, va, bk, bv, op)
+            if dyadic:
+                assert torch.equal(got, want), bk.stride()
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+            assert got[1] == 0
+
+
+@pytest.mark.parametrize("op", ("mac", "max", "min"))
+@pytest.mark.parametrize("nr,nc,cap_a,cap_b", [(13, 11, 128, 128), (29, 7, 256, 256),
+                                               (5, 9, 2048, 2048), (6, 3, 128, 2048),
+                                               (3, 5, 8192, 8192), (2, 3, 32768, 32768)])
+def test_vinter_grid_kernel_equals_plain_version(cuda, nr, nc, cap_a, cap_b, op):
+    """nr and nc not multiples of the kernel's block of 4 pairs, nor of
+    each other; cap_a 128 on the short-row kernel, longer rows (caps 256 to
+    32768) on the four-keys-a-lane one; empty rows. Dyadic values bit for
+    bit, values in [0.5, 2) within rtol 1e-6."""
+    for dyadic in (True, False):
+        a, va, _, _ = make_vinter_case(nr + cap_a, nr, cap_a, cap_b, dyadic=dyadic)
+        _, _, b, vb = make_vinter_case(nc + cap_b, nc, cap_a, cap_b, dyadic=dyadic)
+        a[1], va[1], b[-1], vb[-1] = SENTINEL, 0, SENTINEL, 0
+        a, va, b, vb = (T(x).to(cuda) for x in (a, va, b, vb))
+        n, n_pairs = SV.vinter_grid.launches, SV.vinter.launches
+        got = SV.vinter_grid(a, va, b, vb, op)
+        torch.cuda.synchronize()
+        assert (SV.vinter_grid.launches, SV.vinter.launches) == (n + 1, n_pairs)
+        want = SV.vinter_grid_ref(a, va, b, vb, op)
+        assert got.shape == (nr, nc)
+        if dyadic:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        assert (got[1] == 0).all() and (got[:, -1] == 0).all()
+
+
+@pytest.mark.parametrize("cap_a", [128, 256])
+def test_vinter_grid_kernel_takes_b_off_a_16_byte_boundary(cuda, cap_a):
+    """The grid form loads A 16 bytes at a time but B a key at a time: a B
+    stack at a storage offset gives the plain version's sums bit for bit,
+    and an A stack there raises before any launch."""
+    a, va, b, vb = (T(x).to(cuda) for x in make_vinter_case(cap_a, 21, cap_a, 256))
+    ob, ovb = offset_view(b, 1), offset_view(vb, 3)
+    n = SV.vinter_grid.launches
+    got = SV.vinter_grid(a, va, ob, ovb)
+    torch.cuda.synchronize()
+    assert SV.vinter_grid.launches == n + 1
+    assert torch.equal(got, SV.vinter_grid_ref(a, va, b, vb))
+    with pytest.raises(ValueError):
+        SV.vinter_grid(offset_view(a, 1), va, b, vb)
+    assert SV.vinter_grid.launches == n + 1
 
 
 @pytest.mark.parametrize("B,words", [(128, 256), (2048, 3072), (64, 32768)])
