@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,build,parity,csr     # kernels only
+    python3 chip_smoke.py --phases card,build,emit           # the emit path only
     python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
 Phases, each printing its own lines and its seconds; any mismatch or
@@ -63,20 +64,39 @@ exception exits non-zero:
               package's counters on email-eu-core 0.25 4M, wiki-vote 4C and
               4M equal to the device path's counts, mico 4C in both modes
               timed; one compact-rows launch per host compaction
- 10. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
+ 10. emit     Miner.embeddings: mico's triangles and 4-cliques (INTER emit
+              levels) and email-eu-core 0.25's diamonds (SUB) and 4-cycles
+              (general), each matrix equal to the JAX package's row for row
+              (sha256), each expand or emit level call one launch of its
+              shape's kernels, no padded-row gather on mico; youtube's
+              10152197 triangles checked on the card (order, edges, no row
+              twice), its wall and device busy share; mico's triangles on
+              the host path equal to the device path's, one compact-rows
+              launch per host compaction
+ 11. fsm      the FSM feed through a forest of [triangle count, triangle
+              emit] on mico; fsm and sfsm on email-eu-core 1.0 equal to the
+              JAX package's result dicts, each wall and its triangle feed's
+              share
+ 12. telemetry benchmarks/ci_gate.py:measure_telemetry's session mix on a
+              traced and an untraced Miner: baseline.json's span counts,
+              runner stats, session counters, registry == legacy, traced ==
+              untraced (counts, stats, kernel launches); mico 4-clique
+              traced and untraced, the traced run's top self-times
+ 13. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
               equal to the sorted-row count of the same rows; the
               merge-against-bitmap crossover sweep of
               benchmarks/bench_kernels.py, timed on the card
- 11. profile  mico's queries once more under torch.profiler, then mico's
+ 14. profile  mico's queries once more under torch.profiler, then mico's
               4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
- 12. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 15. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
-(5, 6, 7, 9 or 10) and must be > 0 just after it; the kernels line reports
-those counts. --phases runs a subset (the result lines are printed only when
-every phase ran); --src measures another checkout's repro_torch, such as a
-parent commit unpacked with git archive, with this script.
+(5, 6, 7, 9, 10 or 13) and must be > 0 just after it; the kernels line
+reports those counts (``emit_launches``: the emit path's). --phases runs a
+subset (the result lines are printed only when every phase ran); --src
+measures another checkout's repro_torch, such as a parent commit unpacked
+with git archive, with this script.
 
 Imports nothing of JAX or of the JAX package. Needs one card; exits non-zero,
 printing no result, when torch sees no CUDA device or when the repository's
@@ -239,6 +259,50 @@ FOREST_REPORT = {"feed_passes": (6, 2), "level2_execs": (19, 10),
 HOST_4M = {"device_compactions": 0, "host_compactions": 3, "items": 358319,
            "level_kernel_dispatches": 45, "host_syncs": 45}
 HOST_4M_EXECS = {("expand", 2): 3, ("count", 3): 42}
+# The JAX package's embeddings (Miner.embeddings, an (N, k) int32 matrix) as
+# (rows, sha256 of the matrix's C-order int32 bytes), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python -c "import hashlib, numpy as np; \
+#     from repro.graph import get_dataset; from repro.mining.session import Miner; \
+#     e = np.ascontiguousarray(Miner(get_dataset(NAME, SCALE), backend='xla') \
+#     .embeddings(QUERY), dtype=np.int32); \
+#     print(len(e), hashlib.sha256(e.tobytes()).hexdigest())"
+# mico's emit levels are INTER levels (the expand kernel's CSR form and the
+# items pass); diamond's is a SUB level (the mark kernel), 4-cycle's a
+# general one (the k-reference kernel)
+EMIT = (
+    ("mico", 1.0, (
+        ("triangle", 71459, "93418e41328ed60901478b211226556a2e353bd6185389d5793ee4b4d715abe9"),
+        ("4-clique", 4682, "3dbbfea408140387d81b30f8a6121a170aaf0261feb01f429c008558f792ac97"))),
+    ("email-eu-core", 0.25, (
+        ("diamond", 151646, "3c60aa9ab19cf1cca8ce98eabd3b8b47fd6afcacf4fe255276a9bc2f5bd8c9db"),
+        ("4-cycle", 161630, "2f165d8e154ae8670d3717a2a5519a4d61f4e0df8daaef1ff7347d70caf0c031"))),
+)
+# youtube's 10152197 triangles (122 MB of rows) are checked on the card:
+# v0 > v1 > v2, every pair an edge, no row twice
+EMIT_CHECKED = ("youtube", 1.0, "triangle")
+# FSM and sFSM (mining.fsm) on email-eu-core 1.0, labels random_labels(V, 4,
+# seed=1), support 100, max_edges 3: the JAX package's (patterns, sha256 of
+# repr(sorted(result.items()))), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python -c "import hashlib; from \
+#     repro.graph import get_dataset; from repro.mining.fsm import FN, \
+#     random_labels; g = get_dataset('email-eu-core', 1.0); r = FN(g, \
+#     random_labels(g.num_vertices, 4, seed=1), 100, max_edges=3); \
+#     print(len(r), hashlib.sha256(repr(sorted(r.items())).encode()).hexdigest())"
+FSM_CELL = ("email-eu-core", 1.0, 4, 100, 3)
+FSM_WANT = {"fsm": (286, "2ea986624461b94a7b962794c185bd30f6d2f581c893aea3afb81976b720fe0e"),
+            "sfsm": (286, "72845a3e76312afa4a106fbcb543a184b67198fb619b146c9b045b293a058d9a")}
+# benchmarks/baseline.json's exact.telemetry.email-eu-core@0.25.* (the JAX
+# package's traced session mix: T, TC, TT, 4C, then the 4-motifs through
+# count_many)
+TELEMETRY = {
+    "span_counts": {"dispatch": 43, "level": 49, "span": 20},
+    "runner_stats": {"count_rides": 0, "device_compactions": 4, "exec_hits": 32,
+                     "exec_misses": 20, "host_compactions": 0, "host_syncs": 46,
+                     "items": 369821, "level_kernel_dispatches": 43},
+    "session_counters": {"plan_hits": 0, "plan_misses": 4, "queries": 5,
+                         "schedule_hits": 0, "schedule_misses": 1},
+    "registry_equals_legacy": True, "enabled_disabled_parity": True,
+}
 # the bitmap crossover sweep (benchmarks/bench_kernels.py): 128 rows of up
 # to 1024 keys over a key space of 8192, at these fractions of it
 CROSSOVER = (128, 1024, 8192, (0.01, 0.05, 0.1, 0.2, 0.4))
@@ -388,10 +452,15 @@ def _times_text(t: dict) -> str:
             f"{t['host_us']:.1f} us host")
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    out = card_name()
     print(out, flush=True)
     print(f"[card] torch {torch.__version__} CUDA {torch.version.cuda} "
           f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}",
@@ -1737,6 +1806,275 @@ def phase_host(graphs: dict) -> dict:
     return {"compact_rows": cp.launches}
 
 
+def _sha(rows) -> str:
+    import hashlib
+
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(rows, dtype=np.int32).tobytes()).hexdigest()
+
+
+# the kernels an expand or emit level of each shape launches once a call
+# (WaveRunner._fused_shape: 'inter', 'sub', or a general level with
+# references, None)
+LEVEL_KERNELS = {"inter": ("intersect_expand", "expand_items"), "sub": ("intersect_mark",),
+                 None: ("intersect_multi",)}
+EMIT_KERNELS = ("intersect_expand", "expand_items", "intersect_mark", "intersect_multi",
+                "compact_rows")
+
+
+def _emit_launches_expected(plan, calls: dict) -> dict:
+    """Launches per kernel that ``plan``'s expand and emit levels owe for
+    ``calls`` level calls by (kind, level) on the device path."""
+    from repro_torch.mining.engine import WaveRunner
+    want = dict.fromkeys(EMIT_KERNELS, 0)
+    for op in plan.ops:
+        for name in LEVEL_KERNELS[WaveRunner._fused_shape(op)]:
+            want[name] += calls.get((op.kind, op.level), 0)
+    return want
+
+
+def np_equal(a, b) -> bool:
+    """Whether two host matrices are equal, shape and rows."""
+    return a.shape == b.shape and bool((a == b).all())
+
+def _embed(miner, query: str):
+    """(embeddings, seconds, launches per emit-path kernel, level calls by
+    (kind, level), padded-row gathers) of one Miner.embeddings call."""
+    W = wrappers()
+    before = {k: W[k].launches for k in EMIT_KERNELS}
+    execs0 = dict(miner.runner.level_execs)
+    (emb, dt), gathers = count_gathers(lambda: _timed(lambda: miner.embeddings(query)))
+    launched = {k: W[k].launches - before[k] for k in EMIT_KERNELS}
+    calls = {key: v - execs0.get(key, 0) for key, v in miner.runner.level_execs.items()
+             if v != execs0.get(key, 0)}
+    return emb, dt, launched, calls, gathers
+
+
+def _check_on_card(miner, emb) -> tuple[float, int]:
+    """youtube's triangles checked on the card: v0 > v1 > v2, each of the
+    three pairs an edge (its src·2^31 + dst key found in the graph's sorted
+    edge keys), no row twice. Returns (seconds, rows)."""
+    g = miner.graph
+    t0 = time.perf_counter()
+    e = torch.from_numpy(emb).to(DEVICE).long()
+    ok = bool(((e[:, 0] > e[:, 1]) & (e[:, 1] > e[:, 2])).all())
+    keys = g.edge_keys
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        want = (e[:, i] << 31) + e[:, j]
+        pos = torch.searchsorted(keys, want).clamp(max=keys.numel() - 1)
+        ok = ok and bool((keys[pos] == want).all())
+    packed = torch.sort((e[:, 0] << 42) | (e[:, 1] << 21) | e[:, 2]).values
+    ok = ok and bool((packed[1:] != packed[:-1]).all())
+    torch.cuda.synchronize()
+    if not ok:
+        raise SystemExit("[emit] youtube triangles: a row out of order, a pair not an "
+                         "edge or a row twice")
+    return time.perf_counter() - t0, len(emb)
+
+
+def _busy(run) -> tuple[float, float, float, object]:
+    """(untraced wall ms, device busy ms, traced wall ms, result) of
+    ``run()``: one untraced timed run, then one under torch.profiler (CUDA
+    activity only) whose device events' durations are summed straight from
+    the trace (no per-event Python objects: a run of 10^5 launches stays
+    cheap to account)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out, wall = _timed(run)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, traced = _timed(run)
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()) / 1e6
+    return wall * 1e3, busy, traced * 1e3, out
+
+
+def phase_emit(graphs: dict, card: str) -> dict:
+    """Miner.embeddings on the card: every matrix equal to the JAX package's
+    row for row (sha256), its row count the count's, each expand and emit
+    level call one launch of its shape's kernels and no padded-row gather
+    on mico; youtube's 10152197 triangles checked on the card; mico's
+    triangles on the host path equal to the device path's, one compact-rows
+    launch per host compaction. Returns the path's launches per kernel."""
+    from repro_torch import Miner
+    W = wrappers()
+    want_count = {(n, s, q): w for n, s, qs in MAIN_PATH for q, w in qs}
+    zero_launches()
+    device_rows = {}
+    for name, scale, queries in EMIT:
+        miner = Miner(graphs[name, scale], device=DEVICE)
+        for query, rows, sha in queries:
+            emb, dt, launched, calls, gathers = _embed(miner, query)
+            plan = miner.compile(query, emit=True)
+            want = _emit_launches_expected(plan, calls)
+            got_sha = _sha(emb)
+            device_rows[name, scale, query] = emb
+            print(f"[emit] {name} x{scale} {query}: {emb.shape} rows, sha256 {got_sha[:16]} "
+                  f"(JAX package: {rows}, {sha[:16]}) {dt:.3f}s wall ({card}); level calls "
+                  f"{calls}; launches {launched}; padded-row gathers {gathers}", flush=True)
+            if got_sha != sha or emb.shape != (rows, plan.k) \
+                    or rows != want_count.get((name, scale, query), rows):
+                raise SystemExit(f"[emit] MISMATCH {name} {query}: {emb.shape} {got_sha}")
+            if launched != want:
+                raise SystemExit(f"[emit] {name} {query}: launches {launched} != {want}")
+            if name == "mico" and any(gathers.values()):
+                raise SystemExit(f"[emit] {name} {query}: padded-row gathers {gathers}")
+    name, scale, query = EMIT_CHECKED
+    miner = Miner(graphs[name, scale], device=DEVICE)
+    emb, dt, launched, calls, _ = _embed(miner, query)
+    check_s, rows = _check_on_card(miner, emb)
+    t0 = time.perf_counter()
+    wall, busy, traced, again = _busy(lambda: miner.embeddings(query))
+    print(f"[emit] {name} x{scale} {query}: {rows} rows ({emb.nbytes / 1e6:.0f} MB), "
+          f"first call {dt:.3f}s wall, then {wall:.1f} ms untraced, device busy "
+          f"{busy:.1f} ms = {100 * busy / wall:.1f}% ({card}; traced run {traced:.1f} ms, "
+          f"accounted in {time.perf_counter() - t0 - (wall + traced) / 1e3:.1f}s); checked "
+          f"on the card in {check_s:.3f}s; emit calls {calls}; launches {launched}",
+          flush=True)
+    if rows != want_count[name, scale, query] or not (again == emb).all():
+        raise SystemExit(f"[emit] MISMATCH {name} {query}: {rows} rows")
+    # the host path: the keep mask (one mark launch per reference), one
+    # compact-rows launch and the compact oracle per emit call
+    host = Miner(graphs["mico", 1.0], device=DEVICE, device_compact=False)
+    cp0, mk0 = W["compact_rows"].launches, W["intersect_mark"].launches
+    emb, dt = _timed(lambda: host.embeddings("triangle"))
+    st = host.stats["runner"]
+    cp, mk = W["compact_rows"].launches - cp0, W["intersect_mark"].launches - mk0
+    print(f"[emit] mico x1.0 triangle, host path: {emb.shape} rows {dt:.3f}s wall ({card}); "
+          f"{st['host_compactions']} host compactions, compact_rows launches {cp}, mark "
+          f"launches {mk}", flush=True)
+    if not np_equal(emb, device_rows["mico", 1.0, "triangle"]) \
+            or cp != st["host_compactions"] or mk != st["host_compactions"] or cp <= 0:
+        raise SystemExit("[emit] MISMATCH mico triangle host path")
+    launches = {k: W[k].launches for k in EMIT_KERNELS}
+    for k, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"[emit] {k} was never launched on the emit path")
+    return launches
+
+
+def phase_fsm(graphs: dict, card: str) -> None:
+    """The FSM feed through a forest of [triangle count, triangle emit] on
+    mico (its count the emitted rows, its feed chunks a lone triangle's),
+    then fsm and sfsm on email-eu-core 1.0 against the JAX package's result
+    dicts, each wall with the share spent in the triangle feed."""
+    import hashlib
+    import importlib
+
+    from repro_torch import Miner
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.mining import apps
+    from repro_torch.mining.plan import TRIANGLE, compile_pattern
+    # the module (the package's ``fsm`` attribute is the function)
+    F = importlib.import_module("repro_torch.mining.fsm")
+    miner = Miner(graphs["mico", 1.0], device=DEVICE)
+    chunks = miner.metrics.counter("feed_chunks")
+    c0 = chunks.value
+    (count, tris), dt = _timed(
+        lambda: miner.run_plans([compile_pattern(TRIANGLE), *apps.FSM_FEED_PLANS]))
+    fused = chunks.value - c0
+    c0 = chunks.value
+    alone = miner.count("triangle")
+    alone_chunks = chunks.value - c0
+    feed = apps.fsm_pattern_feed(graphs["mico", 1.0], miner=miner)[0]
+    print(f"[fsm] mico x1.0 [T count, T emit] through one forest: count {count}, "
+          f"{tris.shape} rows, {fused} feed chunks (T alone {alone_chunks}) {dt:.3f}s wall "
+          f"({card}); fsm_pattern_feed rows sha256 {_sha(feed)[:16]}", flush=True)
+    if not (count == len(tris) == alone == EMIT[0][2][0][1]) or fused != alone_chunks \
+            or _sha(tris) != EMIT[0][2][0][2] or not np_equal(feed, tris):
+        raise SystemExit("[fsm] MISMATCH mico forest feed")
+    name, scale, nlab, support, max_edges = FSM_CELL
+    g = get_dataset(name, scale)
+    labels = F.random_labels(g.num_vertices, nlab, seed=1)
+    feed_s = [0.0]
+    saved = F.fsm_pattern_feed
+
+    def timed_feed(*a, **k):
+        out, t = _timed(lambda: saved(*a, **k))
+        feed_s[0] += t
+        return out
+    F.fsm_pattern_feed = timed_feed
+    try:
+        for fn in (F.fsm, F.sfsm):
+            fsm_miner = Miner(g, device=DEVICE)
+            feed_s[0] = 0.0
+            res, dt = _timed(lambda: fn(g, labels, support, max_edges=max_edges,
+                                        miner=fsm_miner))
+            got = (len(res), hashlib.sha256(repr(sorted(res.items())).encode()).hexdigest())
+            want = FSM_WANT[fn.__name__]
+            print(f"[fsm] {fn.__name__} {name} x{scale} labels {nlab} support {support}: "
+                  f"{got[0]} patterns, sha256 {got[1][:16]} (JAX package: {want[0]}, "
+                  f"{want[1][:16]}) {dt:.3f}s wall ({card}), triangle feed {feed_s[0]:.3f}s "
+                  f"= {100 * feed_s[0] / dt:.1f}% of it", flush=True)
+            if got != want:
+                raise SystemExit(f"[fsm] MISMATCH {fn.__name__}: {got} != {want}")
+    finally:
+        F.fsm_pattern_feed = saved
+
+
+def _telemetry_mix(miner, names) -> dict:
+    return {"T": miner.count("triangle"), "TC": miner.count("three-chain"),
+            "TT": miner.count("tailed-triangle"), "4C": miner.count("4-clique"),
+            "4M": list(miner.count_many(names))}
+
+
+def phase_telemetry(graphs: dict, card: str) -> None:
+    """benchmarks/ci_gate.py:measure_telemetry's mix on a traced and an
+    untraced Miner: the baseline.json values, the same counts, stats and
+    kernel launches both ways; then mico's 4-clique traced and untraced."""
+    from repro_torch import Miner
+    from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
+    from repro_torch.obs import Telemetry
+    W = wrappers()
+    names = list(FOUR_MOTIF_SHAPES)
+    g = graphs["email-eu-core", 0.25]
+    runs = {}
+    for traced in (True, False):
+        tel = Telemetry(enabled=traced)
+        miner = Miner(g, device=DEVICE, telemetry=tel)
+        before = {k: fn.launches for k, fn in W.items()}
+        counts, dt = _timed(lambda: _telemetry_mix(miner, names))
+        runs[traced] = (miner, tel, counts, {k: fn.launches - before[k] for k, fn in W.items()},
+                        dt)
+    miner, tel, counts, launched, dt = runs[True]
+    plain, _, plain_counts, plain_launched, plain_dt = runs[False]
+    reg = tel.metrics
+    rs = dict(miner.runner.stats)
+    sess = miner.stats
+    keys = tuple(TELEMETRY["session_counters"])
+    by_cat: dict = {}
+    for sp in tel.tracer.spans():
+        by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
+    got = {"span_counts": dict(sorted(by_cat.items())),
+           "runner_stats": dict(sorted(rs.items())),
+           "session_counters": {k: sess[k] for k in keys},
+           "registry_equals_legacy": all(reg.value(k) == v for k, v in rs.items())
+           and all(reg.value(k) == sess[k] for k in keys),
+           "enabled_disabled_parity": counts == plain_counts and sess == plain.stats}
+    print(f"[telemetry] email-eu-core x0.25 mix traced {dt:.3f}s, untraced {plain_dt:.3f}s "
+          f"({card}): {got}; launches traced {launched}, untraced {plain_launched}",
+          flush=True)
+    if got != TELEMETRY or launched != plain_launched \
+            or counts["4M"] != list(SESSION_COUNTS["4M"].values()):
+        raise SystemExit(f"[telemetry] MISMATCH: {got} != {TELEMETRY}, or launches differ")
+    # mico's 4-clique on one session, its tracer off, on, off, on
+    tel = Telemetry()
+    m4 = Miner(graphs["mico", 1.0], device=DEVICE, telemetry=tel)
+    m4.count("4-clique")                           # executables built
+    walls = {False: [], True: []}
+    for traced in (False, True, False, True):
+        tel.tracer.enabled = traced
+        tel.tracer.clear()
+        got4, dt = _timed(lambda: m4.count("4-clique"))
+        walls[traced].append(dt)
+        if got4 != EMIT[0][2][1][1]:
+            raise SystemExit(f"[telemetry] MISMATCH mico 4-clique {got4}")
+    top = sorted(tel.tracer.level_seconds().items(), key=lambda kv: -kv[1])[:6]
+    print(f"[telemetry] mico x1.0 4-clique, tracer off/on/off/on: "
+          f"{walls[False][0]:.3f}, {walls[True][0]:.3f}, {walls[False][1]:.3f}, "
+          f"{walls[True][1]:.3f}s ({card}); last traced run's self-time "
+          + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in top), flush=True)
+
+
 def phase_bitmap(graphs: dict) -> dict:
     """keys_to_bitmap + xbitmap_count on mico's hub half-edges, equal to the
     sorted-row count; then the crossover sweep, timed."""
@@ -1876,7 +2214,7 @@ def phase_profile(graphs: dict) -> None:
 
 
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
-          "host", "bitmap", "profile")
+          "host", "emit", "fsm", "telemetry", "bitmap", "profile")
 
 
 def main(argv=None) -> int:
@@ -1909,15 +2247,14 @@ def main(argv=None) -> int:
         out = fn(*a)
         print(f"[phase] {name}: {time.perf_counter() - t:.1f}s", flush=True)
         return out
-    if "card" in run:
-        timed("card", phase_card)
+    card = timed("card", phase_card) if "card" in run else card_name()
     if "build" in run:
         timed("build", phase_build)
     if "parity" in run:
         report = timed("parity", phase_parity)
     if "csr" in run:
         timed("csr", phase_csr, report)
-    if run & {"main", "forest", "host", "bitmap", "profile"}:
+    if run & {"main", "forest", "host", "emit", "fsm", "telemetry", "bitmap", "profile"}:
         graphs = timed("graphs", build_graphs)
     if "main" in run:
         counts, launches = timed("main", phase_main_path, graphs)
@@ -1929,6 +2266,13 @@ def main(argv=None) -> int:
         timed("forest", phase_forest, graphs)
     if "host" in run:
         launches.update(timed("host", phase_host, graphs))
+    emit_launches = {}
+    if "emit" in run:
+        emit_launches = timed("emit", phase_emit, graphs, card)
+    if "fsm" in run:
+        timed("fsm", phase_fsm, graphs, card)
+    if "telemetry" in run:
+        timed("telemetry", phase_telemetry, graphs, card)
     if "bitmap" in run:
         launches.update(timed("bitmap", phase_bitmap, graphs))
     if "profile" in run:
@@ -1941,7 +2285,8 @@ def main(argv=None) -> int:
     # grid_launches); its grid_* keys time the grid form
     report["vinter"]["grid_launches"] = launches["vinter_grid"]
     rows = [{"name": name, **KERNELS[name], "launches": launches[name],
-             "parity": True, **report[name]} for name in KERNELS]
+             "emit_launches": emit_launches.get(name, 0), "parity": True, **report[name]}
+            for name in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ The counterpart of ``repro`` (the JAX package), module for module:
   graph/       CSR graph substrate as torch tensors, synthetic datasets
   kernels/     hand-written CUDA kernels (``csrc/``), ``build.py`` that builds them, and
                their op wrappers, each beside its plain torch version
-  mining/      pattern plans, the wavefront engine and the ``Miner`` session
-  obs/         metrics registry behind the engine's counters
+  mining/      pattern plans, the wavefront engine, the ``Miner`` session, and
+               the workloads over it (FSM, the exhaustive baseline, ``apps``)
+  obs/         metrics registry behind the engine's counters, span tracer
   launch/      ``python -m repro_torch.launch.mine``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -3,6 +3,7 @@
   python -m repro_torch.launch.mine --app T --dataset mico
   python -m repro_torch.launch.mine --app 4C --dataset email-eu-core \\
       --scale 0.25 --device cpu --baseline
+  python -m repro_torch.launch.mine --app FSM --dataset email-eu-core --support 100
 
 Runs on the CUDA device unless ``--device cpu``. ``--baseline`` checks the
 result against the scalar InHouseAutoMine enumeration (T, TC, TT, TM, 4C,
@@ -16,6 +17,19 @@ batch pattern by pattern instead, and ``--check`` (F3M, F4M) asserts that
 the fused counts equal the independent ones. The JAX launcher's ``--check``
 also holds F4M to a brute-force census (``repro.mining.reference``, which
 needs networkx); the port leaves that census out.
+
+FSM and sFSM mine frequent labelled subgraphs of up to three edges
+(``mining.fsm``, MNI support and embedding-count support) with
+``--labels`` random vertex labels (``random_labels(V, labels, seed=1)``)
+at ``--support``; their triangles come from the session's emit plan.
+``--exhaustive PATTERN`` also counts PATTERN by the GRAMER-style
+exhaustive check (``mining.exhaustive``; exponential, small graphs only).
+
+Session flags (``launch.cli.add_session_args``, read by
+``MinerConfig.from_args``): ``--chunk``; ``--trace OUT.json`` turns span
+tracing on and writes the run's span tree as Chrome-trace JSON (the top
+self-times printed); ``--session-stats`` prints the cache counters and the
+metrics registry. ``--shards`` > 1 raises: the port mines on one device.
 """
 from __future__ import annotations
 
@@ -23,11 +37,12 @@ import argparse
 import time
 
 from repro_torch.graph.datasets import DATASETS, dataset_stats, get_dataset
-from repro_torch.mining import baseline
+from repro_torch.mining import baseline, exhaustive
+from repro_torch.mining.fsm import fsm, random_labels, sfsm
 from repro_torch.mining.plan import FOUR_MOTIF_SHAPES, THREE_CHAIN_INDUCED, TRIANGLE
 from repro_torch.mining.session import Miner, MinerConfig
 
-from .cli import add_graph_args
+from .cli import add_graph_args, add_session_args
 
 # single-pattern apps
 PATTERN_APPS = {"T": "triangle", "TS": "triangle-nested", "TC": "three-chain",
@@ -36,7 +51,9 @@ PATTERN_APPS = {"T": "triangle", "TS": "triangle-nested", "TC": "three-chain",
                 "S4": "4-star"}
 # motif batches through the plan forest; F3M / F4M print its sharing report
 BATCH_APPS = ("TM", "F3M", "4M", "F4M")
-APPS = [*PATTERN_APPS, *BATCH_APPS]
+# frequent subgraph mining: MNI support, and GRAMER's count support
+FSM_APPS = {"FSM": fsm, "sFSM": sfsm}
+APPS = [*PATTERN_APPS, *BATCH_APPS, *FSM_APPS]
 THREE_MOTIF_QUERIES = (TRIANGLE, THREE_CHAIN_INDUCED)
 BASELINES = {
     "T": lambda g: baseline.triangle_count(g),
@@ -48,9 +65,14 @@ BASELINES = {
 }
 
 
-def run_app(app: str, miner: Miner, fused: bool = True):
-    """Serve one app code from the session: an int, or for a motif batch a
-    dict of counts by pattern."""
+def run_app(app: str, miner: Miner, fused: bool = True, support: int = 100,
+            labels=None):
+    """Serve one app code from the session: an int, for a motif batch a
+    dict of counts by pattern, for FSM / sFSM the number of frequent
+    patterns."""
+    if app in FSM_APPS:
+        res = FSM_APPS[app](miner.graph, labels, support, miner=miner)
+        return {"frequent_patterns": len(res)}
     if app in ("TM", "F3M"):
         if fused:
             t, chains = miner.count_many(list(THREE_MOTIF_QUERIES))
@@ -99,22 +121,42 @@ def main(argv=None):
     ap.add_argument("--check", action="store_true",
                     help="F3M/F4M: assert fused counts == independent "
                          "per-pattern counts")
+    ap.add_argument("--support", type=int, default=100,
+                    help="FSM/sFSM: minimum support of a frequent pattern")
+    ap.add_argument("--labels", type=int, default=4,
+                    help="FSM/sFSM: number of random vertex labels")
+    ap.add_argument("--exhaustive", default="", metavar="PATTERN",
+                    help="also count PATTERN by the GRAMER-style exhaustive check ("
+                         + ", ".join(exhaustive.PATTERN_CHECKS) + ")")
+    add_session_args(ap)
     args = ap.parse_args(argv)
     if args.baseline and args.app not in BASELINES:
         ap.error(f"no scalar baseline for {args.app}; "
                  f"have {', '.join(BASELINES)}")
+    if args.exhaustive and args.exhaustive not in exhaustive.PATTERN_CHECKS:
+        ap.error(f"--exhaustive {args.exhaustive}: pick from "
+                 f"{', '.join(exhaustive.PATTERN_CHECKS)}")
 
     g = get_dataset(args.dataset, scale=args.scale)
     print(f"[mine] {args.dataset} x{args.scale}: {dataset_stats(g)}")
-    miner = Miner(g, MinerConfig(device=args.device))
+    miner = Miner(g, MinerConfig.from_args(args))
+    telemetry = miner.telemetry
+    labels = random_labels(g.num_vertices, args.labels, seed=1) \
+        if args.app in FSM_APPS else None
     if args.app in ("F3M", "F4M"):
         print(f"[mine] forest: {forest_report(args.app, miner)}")
     t0 = time.perf_counter()
     # ints on the host: the device work is done
-    res = run_app(args.app, miner, fused=not args.independent)
+    res = run_app(args.app, miner, fused=not args.independent, support=args.support,
+                  labels=labels)
     dt = time.perf_counter() - t0
     print(f"[mine] {args.app} = {res}  ({dt:.2f}s on {args.device}, "
           f"runner {miner.stats['runner']})")
+    if args.trace:
+        path = telemetry.write_trace(args.trace)
+        top = sorted(telemetry.tracer.level_seconds().items(), key=lambda kv: -kv[1])[:6]
+        print(f"[mine] trace: {sum(1 for _ in telemetry.tracer.spans())} spans -> "
+              f"{path}; self-time " + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in top))
     if args.check and args.app in ("F3M", "F4M"):
         indep = run_app(args.app, miner, fused=False)
         if indep != res:
@@ -127,6 +169,19 @@ def main(argv=None):
             raise SystemExit(f"[mine] baseline {rb} != engine {res}")
         print(f"[mine] baseline(InHouseAutoMine) = {rb} "
               f"({time.perf_counter() - t0:.2f}s)")
+    if args.exhaustive:
+        t0 = time.perf_counter()
+        n = exhaustive.exhaustive_count(g, args.exhaustive)
+        print(f"[mine] exhaustive({args.exhaustive}) = {n} "
+              f"({time.perf_counter() - t0:.2f}s, GRAMER-style)")
+    if args.session_stats:
+        st = miner.stats
+        print(f"[mine] session: {st['queries']} queries, exec cache "
+              f"{st['exec_cache']['hits']} hits / {st['exec_cache']['misses']} builds, "
+              f"plan cache {st['plan_hits']}/{st['plan_misses']}, schedule cache "
+              f"{st['schedule_hits']}/{st['schedule_misses']}")
+        print("[mine] metrics:")
+        print(telemetry.prometheus_text(), end="")
     return res
 
 

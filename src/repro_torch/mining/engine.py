@@ -63,12 +63,32 @@ one read of (rows, counts) to the host, the ``compact`` oracle
 ``record=True`` keeps each wave's live rows and vertices in ``trace``, so
 the two paths can be compared wave for wave.
 
-Emit levels (embeddings) raise ``NotImplementedError`` naming the slice
-that brings them.
+An emit level (``plan.compile_pattern(emit=True)``, ``Miner.embeddings``)
+ends a plan in its embeddings instead of a count: the level's survivors
+are compacted as an expand level's are (the same kernels), the output
+columns are gathered through the worklist's ``src`` on the device, and one
+read per call brings the live (total, k) rows to the host, where
+``_finalize`` concatenates them into one (N, k) int32 matrix. On the host
+path the level's keep mask, one compact-rows launch and the ``compact``
+oracle give the same rows in the same order.
+
+Every level call goes through ``WaveRunner._dispatch``. With the session's
+tracer on it opens a ``dispatch`` span (op kind and level, items,
+capacities, executable-cache hit) and ends it with a synchronize on a card,
+so the span holds the call's device time; ``run`` and ``run_set`` open the
+``execute``, ``feed``, per-level ``L{l}:{kind}`` and ``finalize`` spans
+around it. With the tracer off (the default) no span is opened and nothing
+synchronizes.
+
+The module-level waves (``edge_wave``, ``expand_count``, ``expand``,
+``pair_wave``, ``wave_chunks``) are the one-shot forms the host oracle
+``apps.triangle_list_host`` and the benches use; they run on the device of
+the graph's tensors, through the same kernel wrappers.
 """
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Callable
 
 import numpy as np
@@ -78,10 +98,11 @@ from repro_torch.core.batch import batch_compact_scan, compact_indices_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
 from repro_torch.kernels.compact import compact_rows
-from repro_torch.kernels.ops import (xinter_compact_csr, xinter_count_csr, xlevel_agg,
-                                     xlevel_agg_csr, xlevel_compact, xlevel_compact_csr,
-                                     xlevel_count, xlevel_count_csr, xmark_csr,
-                                     xsub_compact_csr, xsub_count_csr)
+from repro_torch.kernels.ops import (xinter, xinter_compact_csr, xinter_count,
+                                     xinter_count_csr, xlevel_agg, xlevel_agg_csr,
+                                     xlevel_compact, xlevel_compact_csr, xlevel_count,
+                                     xlevel_count_csr, xmark_csr, xsub_compact_csr,
+                                     xsub_count_csr)
 from repro_torch.obs import LegacyStatsView, Telemetry
 from repro_torch.values import edge_value_lookup, prefix_scale
 
@@ -124,6 +145,7 @@ class Wave:
     extends each."""
 
     rows: np.ndarray    # (N, cap) int32 sorted SENTINEL-padded prefix streams
+                        # (``edge_wave``'s: a tensor on the graph's device)
     verts: np.ndarray   # (N,) int32 extension vertex (also the bound)
 
     def __len__(self) -> int:
@@ -192,12 +214,93 @@ def edge_chunks(g: CSRGraph, chunk: int, symmetric: bool = True):
             yield int(cap), v0, v1, n
 
 
-def _neighbor_cap(g: CSRGraph, verts: np.ndarray) -> int:
-    """Degree-bucket capacity of the largest neighbour list of ``verts``
-    (``g`` on the host)."""
-    deg = g.degrees.numpy()
-    mx = int(deg[verts].max()) if len(verts) else 1
+def _on(g: CSRGraph, x) -> torch.Tensor:
+    """``x`` (a host array or a tensor) as a tensor on ``g``'s device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(g.device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(g.device)
+
+
+def edge_wave(g: CSRGraph, chunk: int, symmetric: bool = True):
+    """Yield level-1 waves: (v0 rows are N(v0) on ``g``'s device, vert =
+    v1), bucketed by the prefix vertex's degree so per-edge work is
+    O(bucket), not O(max degree)."""
+    for cap, v0, v1, n in edge_chunks(g, chunk, symmetric):
+        rows, _ = padded_rows(g, _on(g, v0), cap)
+        yield Wave(rows=rows, verts=v1), n
+
+
+def _neighbor_cap(g: CSRGraph, verts) -> int:
+    """Degree-bucket capacity of the largest neighbour list of ``verts``."""
+    deg = _host(g.degrees)
+    mx = int(deg[_host(verts)].max()) if len(verts) else 1
     return _pow2cap(max(mx, 1))
+
+
+def expand_count(g: CSRGraph, wave: Wave, bounded: bool = True) -> torch.Tensor:
+    """counts[i] = |rows_i ∩ N(verts_i) ∩ [0, verts_i)| (bound dropped when
+    ``bounded`` is False): one count-kernel launch on a card. Neighbour
+    capacity = the chunk's degree bucket."""
+    capn = _neighbor_cap(g, wave.verts)
+    verts = _on(g, wave.verts)
+    nbr, _ = padded_rows(g, verts, capn)
+    return xinter_count(_on(g, wave.rows), nbr, verts if bounded else None)
+
+
+def expand(g: CSRGraph, wave: Wave, out_cap: int | None = None):
+    """Materialise S_l rows on the host: (rows (N, out_cap), counts (N,)),
+    from the mark kernel and one compact-rows launch on a card."""
+    capn = _neighbor_cap(g, wave.verts)
+    rows_a = _on(g, wave.rows)
+    cap = out_cap or min(rows_a.shape[1], capn)
+    verts = _on(g, wave.verts)
+    nbr, _ = padded_rows(g, verts, capn)
+    rows, counts = xinter(rows_a, nbr, verts, out_cap=cap)
+    return _host(rows), _host(counts)
+
+
+def pair_chunks(g: CSRGraph, edges: np.ndarray, chunk: int):
+    """Host half of the pair feed: yields (cap_a, cap_b, v0, v1, n) without
+    materialising rows (the device gathers them)."""
+    if edges.shape[0] == 0:
+        return
+    deg = _host(g.degrees)
+    cap_a = _pow2caps(deg[edges[:, 0]])
+    cap_b = _pow2caps(deg[edges[:, 1]])
+    keys = cap_a << 32 | cap_b
+    for key in np.unique(keys):
+        ca, cb = int(key >> 32), int(key & 0xFFFFFFFF)
+        sel = edges[keys == key]
+        nb = min(chunk, _pow2cap(sel.shape[0]))
+        for lo in range(0, sel.shape[0], nb):
+            sl = sel[lo: lo + nb]
+            n = sl.shape[0]
+            v0 = _pad_to(sl[:, 0].astype(np.int32), nb, 0)
+            v1 = _pad_to(sl[:, 1].astype(np.int32), nb, 0)
+            yield ca, cb, v0, v1, n
+
+
+def pair_wave(g: CSRGraph, edges: np.ndarray, chunk: int):
+    """Yield degree-bucketed padded row pairs for an (N, 2) vertex-pair list:
+    (rows_a, rows_b on ``g``'s device, v0, v1, n_valid)."""
+    for ca, cb, v0, v1, n in pair_chunks(g, edges, chunk):
+        rows_a, _ = padded_rows(g, _on(g, v0), ca)
+        rows_b, _ = padded_rows(g, _on(g, v1), cb)
+        yield rows_a, rows_b, v0, v1, n
+
+
+def wave_chunks(wave: Wave, chunk: int):
+    """Split a host wave into padded chunks; yields (Wave, n_valid).
+
+    Padding uses vertex 0 with bound 0 => zero contribution."""
+    n = len(wave)
+    for lo in range(0, max(n, 1), chunk):
+        r = wave.rows[lo: lo + chunk]
+        v = wave.verts[lo: lo + chunk]
+        if r.shape[0] == 0:
+            continue
+        k = r.shape[0]
+        yield Wave(rows=_pad_to(r, chunk, SENTINEL), verts=_pad_to(v, chunk, 0)), k
 
 
 DEFAULT_CHUNK = 4096
@@ -235,9 +338,11 @@ class WaveRunner:
 
     ``stats['host_syncs']`` counts the reference engine's sync points: a
     level's meta read, a residual pack's total, a host-path compaction and
-    one per leaf partial (the port reads a plan's partials in one transfer;
-    the count stays the reference's so that the two engines compare).
-    ``level_execs`` counts level calls per (kind, level).
+    one per leaf partial or emitted block (the port reads a plan's count
+    partials in one transfer; the count stays the reference's so that the
+    two engines compare). ``level_execs`` counts level calls per (kind,
+    level); the registry's ``wave_items`` histogram holds each expand or
+    emit call's survivor total.
     """
 
     # ``stats`` keys, in the reference engine's order; each is a registry
@@ -271,13 +376,17 @@ class WaveRunner:
         self.stats = LegacyStatsView()
         self._ct = {k: self.stats.expose_counter(k, self.metrics)
                     for k in self._STAT_KEYS}
+        self._h_wave_items = self.metrics.histogram("wave_items")
         self._ct_feed_chunks = self.metrics.counter("feed_chunks")
         # aggregate-leaf calls: each rides the leaf's one membership launch,
         # so this counts value lanes, not extra launches
         self._ct_value_lanes = self.metrics.counter("value_lane_dispatches")
         self.level_execs: dict[tuple[str, int], int] = {}
+        # whether the last ``_executable`` call built its executable (the
+        # dispatch span's ``exec_cached`` attribute)
+        self._exec_fresh = False
 
-    # ------------------------------------------------------------ slice
+    # ------------------------------------------------------------ levels
     @staticmethod
     def _fused_shape(op: LevelOp) -> str | None:
         """'inter'/'sub' when one fused bounded kernel covers the level."""
@@ -288,17 +397,6 @@ class WaveRunner:
         if len(op.sub) == 1 and not op.inter:
             return "sub"
         return None
-
-    @classmethod
-    def _require_slice(cls, plan: WavePlan) -> None:
-        """Raise for a level this slice of the port cannot run yet."""
-        for op in plan.ops:
-            if op.kind == "emit":
-                raise NotImplementedError(
-                    f"{plan.pattern.name}: level {op.level} ({op.kind}, inter="
-                    f"{op.inter}, sub={op.sub}, exclude={op.exclude}) — emit "
-                    "levels (embeddings) arrive with the next module slice "
-                    "(ROADMAP.md, modules still to port)")
 
     def _level_dispatches(self, op: LevelOp, host: bool = False) -> int:
         """Membership-kernel launches one level call issues: 1 for a fused
@@ -325,8 +423,48 @@ class WaveRunner:
     def _executable(self, key: tuple, build: Callable) -> Callable:
         fn, fresh = self._exec_cache.get_or_build(
             (self.chunk, self.device_compact, self.fused_level) + key, build)
+        self._exec_fresh = fresh
         self._ct["exec_misses" if fresh else "exec_hits"].inc()
         return fn
+
+    # ------------------------------------------------------------ traced dispatch
+    def _dispatch(self, op: LevelOp, fn: Callable, args: tuple, items=None,
+                  caps_sig: tuple = (), host: bool = False):
+        """Run one level executable. With tracing on, the call sits in a
+        ``dispatch`` span (op kind and level, membership launches, items,
+        capacity signature, executable-cache hit) that ends in a
+        synchronize on a card, so the span holds the call's device time.
+        With tracing off: the bare call, no span and no synchronize."""
+        tr = self.telemetry.tracer
+        if not tr.enabled:
+            return fn(*args)
+        attrs = {"kind": op.kind, "level": op.level,
+                 "dispatches": self._level_dispatches(op, host),
+                 "exec_cached": not self._exec_fresh}
+        if op.agg is not None:
+            attrs["agg"] = op.agg
+        if items is not None:
+            attrs["items"] = int(items)
+        if caps_sig:
+            attrs["caps"] = str(tuple(caps_sig))
+        if host:
+            attrs["host"] = True
+        with tr.span("dispatch", cat="dispatch", **attrs):
+            out = fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return out
+
+    def _span(self, name: str, **attrs):
+        """A span of the session's tracer; a no-op context with tracing off."""
+        tr = self.telemetry.tracer
+        return tr.span(name, **attrs) if tr.enabled else nullcontext()
+
+    def _level_span(self, op: LevelOp, n: int):
+        """The span of one op's processing of one wave chunk (its children's
+        levels nest inside)."""
+        return self._span(f"L{op.level}:{op.kind}", cat="level", level=op.level,
+                          kind=op.kind, items=int(n))
 
     # ------------------------------------------------------------ feed
     def _upload(self, x: np.ndarray) -> torch.Tensor:
@@ -354,8 +492,11 @@ class WaveRunner:
     # ------------------------------------------------------------ plan parts
     @staticmethod
     def _in_cols(op: LevelOp) -> tuple[int, ...]:
-        """Prefix columns whose *values* the level executable consumes."""
+        """Prefix columns whose *values* the level executable consumes (an
+        emit level's output columns too)."""
         cols = set(op.val_refs()) | {c for c in op.gather_refs if c < op.level}
+        if op.kind == "emit":
+            cols |= {c for c in op.out_cols if c < op.level}
         return tuple(sorted(cols))
 
     @staticmethod
@@ -631,6 +772,34 @@ class WaveRunner:
             return rows2, src, verts, torch.stack(metas)
         return fn
 
+    def _plan_emit_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int,
+                      out_cap: int, out_items: int):
+        """Terminal emit level: the compacted embeddings stay on the device
+        until one read per call of their live rows."""
+        return self._executable(
+            ("pemit", op, caps_sig, cap_base, out_cap, out_items),
+            lambda: self._emit_body(op, caps_sig, out_cap, out_items))
+
+    def _emit_body(self, op: LevelOp, caps_sig: tuple, out_cap: int,
+                   out_items: int):
+        """The emit level -> (embeddings (out_items, k) int32, live total):
+        the level's survivors compacted as an expand level's are, column c
+        of an embedding ``verts`` where c is the level's own vertex, else
+        the prefix column gathered through ``src`` (0 past the total)."""
+        in_cols = self._in_cols(op)
+        caps = dict(caps_sig)
+        core = self._survivor_core(op, caps, out_cap, out_items)
+
+        def fn(g, vals, carry, n):
+            get = dict(zip(in_cols, vals))
+            _, _, src, verts, total, _ = core(g, get, carry, n)
+            live = torch.arange(out_items, device=src.device) < total
+            s = src.long()
+            cols = [verts if c == op.level else torch.where(live, get[c][s], 0)
+                    for c in op.out_cols]
+            return torch.stack(cols, dim=1), total
+        return fn
+
     def _plan_chunk_fn(self, op: LevelOp, b: int, out_cap: int, cap2: int,
                        chunk: int):
         """Slice the compacted worklist into the next level's device wave:
@@ -729,7 +898,12 @@ class WaveRunner:
 
     def _finalize(self, plan: WavePlan, parts: list):
         """Reduce one plan's partials — int64 device scalars and, for a count
-        riding an expand, host ints — in one host read."""
+        riding an expand, host ints — in one host read; an emit plan's host
+        blocks into one (N, k) int32 matrix."""
+        if plan.ops[-1].kind == "emit":
+            if not parts:
+                return np.zeros((0, plan.k), dtype=np.int32)
+            return np.concatenate(parts, axis=0).astype(np.int32)
         agg = plan.ops[-1].agg
         if agg is not None:
             return self._finalize_agg(agg, parts)
@@ -770,41 +944,48 @@ class WaveRunner:
         return caps
 
     def run(self, plan: WavePlan):
-        """Execute a compiled counting or aggregate ``WavePlan``; returns the
-        count (divided by ``plan.div``) or the aggregate (a float)."""
-        self._require_slice(plan)
+        """Execute a compiled ``WavePlan``: returns the count (divided by
+        ``plan.div``), the aggregate (a float) or, for an emit plan, the
+        (N, k) int32 embedding matrix."""
         need1 = 1 in plan.ops[0].row_refs()
         outs: list = []
-        for cap0, dv0, dv1, v1h, n in self._edge_feed(plan.symmetric):
-            self._ct_feed_chunks.inc()
-            self._record_feed(cap0, dv0, dv1, n)
-            outs += self._plan_descend(plan, 0, {0: dv0, 1: dv1},
-                                       self._feed_caps(cap0, need1, v1h), None, n)
-        self._ct["host_syncs"].inc(len(outs))
-        return self._finalize(plan, outs)
+        with self._span("execute", plan=plan.pattern.name):
+            for cap0, dv0, dv1, v1h, n in self._edge_feed(plan.symmetric):
+                self._ct_feed_chunks.inc()
+                with self._span("feed", cat="level", cap=cap0, items=n):
+                    self._record_feed(cap0, dv0, dv1, n)
+                    outs += self._plan_descend(plan, 0, {0: dv0, 1: dv1},
+                                               self._feed_caps(cap0, need1, v1h), None, n)
+            self._ct["host_syncs"].inc(len(outs))
+            with self._span("finalize"):
+                return self._finalize(plan, outs)
 
     def run_set(self, forest):
         """Execute a ``forest.PlanForest``: each feed orientation is iterated
         once, every trie root consumes the same device chunks, and shared
         interior nodes run their expand and compaction once before fanning
         out to their child branches. Returns per-plan results in
-        ``forest.plans`` order, equal to running each plan through ``run``."""
-        for plan in forest.plans:
-            self._require_slice(plan)
+        ``forest.plans`` order, equal to running each plan through ``run``
+        (ints, floats, or (N, k) int32 matrices for emit plans)."""
         acc: list[list] = [[] for _ in forest.plans]
-        for symmetric, roots in ((True, forest.symmetric_roots),
-                                 (False, forest.directed_roots)):
-            if not roots:
-                continue
-            need1 = any(1 in r.op.row_refs() for r in roots)
-            for cap0, dv0, dv1, v1h, n in self._edge_feed(symmetric):
-                self._ct_feed_chunks.inc()
-                self._record_feed(cap0, dv0, dv1, n)
-                caps = self._feed_caps(cap0, need1, v1h)
-                for root in roots:
-                    self._forest_descend(root, {0: dv0, 1: dv1}, caps, None, n, acc)
-        self._ct["host_syncs"].inc(sum(len(a) for a in acc))
-        return [self._finalize(plan, parts) for plan, parts in zip(forest.plans, acc)]
+        with self._span("execute", plans=len(forest.plans), forest=True):
+            for symmetric, roots in ((True, forest.symmetric_roots),
+                                     (False, forest.directed_roots)):
+                if not roots:
+                    continue
+                need1 = any(1 in r.op.row_refs() for r in roots)
+                for cap0, dv0, dv1, v1h, n in self._edge_feed(symmetric):
+                    self._ct_feed_chunks.inc()
+                    with self._span("feed", cat="level", cap=cap0, items=n):
+                        self._record_feed(cap0, dv0, dv1, n)
+                        caps = self._feed_caps(cap0, need1, v1h)
+                        for root in roots:
+                            self._forest_descend(root, {0: dv0, 1: dv1}, caps, None, n,
+                                                 acc)
+            self._ct["host_syncs"].inc(sum(len(a) for a in acc))
+            with self._span("finalize"):
+                return [self._finalize(plan, parts)
+                        for plan, parts in zip(forest.plans, acc)]
 
     def _leaf(self, op: LevelOp, caps_sig: tuple, cap_base: int, vals, carry, n):
         """One count or aggregate leaf call -> its device partial."""
@@ -814,7 +995,7 @@ class WaveRunner:
             fn = self._plan_agg_fn(op, caps_sig, cap_base)
         else:
             fn = self._plan_count_fn(op, caps_sig, cap_base)
-        return fn(self.g, vals, carry, n)
+        return self._dispatch(op, fn, (self.g, vals, carry, n), items=n, caps_sig=caps_sig)
 
     def _level_args(self, op: LevelOp, cols: dict, caps: dict, carry):
         """(caps_sig, cap_base, vals, b, out_cap, out_items) of one level call."""
@@ -831,8 +1012,12 @@ class WaveRunner:
         """Execute one forest node on a wave chunk; fan out over children.
 
         The per-op machinery of ``_plan_descend``, except that an expand's
-        chunks feed every child branch, and a leaf's partial goes to each
-        plan that owns it."""
+        chunks feed every child branch, and a leaf's partial (an emit
+        node's blocks) goes to each plan that owns it."""
+        with self._level_span(node.op, n):
+            self._forest_node(node, cols, caps, carry, n, acc)
+
+    def _forest_node(self, node, cols: dict, caps: dict, carry, n: int, acc: list) -> None:
         op = node.op
         caps_sig, cap_base, vals, b, out_cap, out_items = \
             self._level_args(op, cols, caps, carry)
@@ -840,6 +1025,12 @@ class WaveRunner:
             part = self._leaf(op, caps_sig, cap_base, vals, carry, n)
             for i in node.plans:
                 acc[i].append(part)
+            return
+        if op.kind == "emit":
+            parts = self._plan_emit(op, caps_sig, cap_base, out_cap, out_items, cols,
+                                    vals, carry, n)
+            for i in node.plans:
+                acc[i].extend(parts)
             return
         if node.ride_plans:
             self._ct["count_rides"].inc(len(node.ride_plans))
@@ -898,22 +1089,56 @@ class WaveRunner:
                       carry, n: int) -> list:
         """Execute plan.ops[oi] on one wave chunk; recurse over survivors."""
         op = plan.ops[oi]
-        caps_sig, cap_base, vals, b, out_cap, out_items = \
-            self._level_args(op, cols, caps, carry)
-        if op.kind == "count":
-            return [self._leaf(op, caps_sig, cap_base, vals, carry, n)]
+        with self._level_span(op, n):
+            caps_sig, cap_base, vals, b, out_cap, out_items = \
+                self._level_args(op, cols, caps, carry)
+            if op.kind == "count":
+                return [self._leaf(op, caps_sig, cap_base, vals, carry, n)]
+            if op.kind == "emit":
+                return self._plan_emit(op, caps_sig, cap_base, out_cap, out_items, cols,
+                                       vals, carry, n)
+            if self.device_compact:
+                chunks = self._expand_chunks_device(op, caps_sig, cap_base, out_cap,
+                                                    out_items, b, cols, vals, carry, n)
+            else:
+                chunks = self._expand_chunks_host(op, caps_sig, cap_base, out_cap, cols,
+                                                  vals, carry, n)
+            parts: list = []
+            for cols2, caps2, carry2, vch, m in chunks:
+                self._record(op.level + 1,
+                             self._wave_repr(cols2, op.out_cols, carry2, vch), vch, m)
+                parts += self._plan_descend(plan, oi + 1, cols2, caps2, carry2, m)
+            return parts
+
+    def _plan_emit(self, op, caps_sig, cap_base, out_cap, out_items, cols, vals,
+                   carry, n) -> list:
+        """One emit-level call -> its host block of embeddings ([] when none
+        survive). Device path: the emit executable, one read of the total,
+        then one copy of the live rows. Host path: the keep mask and one
+        compact-rows launch, one read of (rows, counts), the ``compact``
+        oracle, and the output columns gathered on the host."""
+        self._bump(op, host=not self.device_compact)
         if self.device_compact:
-            chunks = self._expand_chunks_device(op, caps_sig, cap_base, out_cap,
-                                                out_items, b, cols, vals, carry, n)
-        else:
-            chunks = self._expand_chunks_host(op, caps_sig, cap_base, out_cap, cols,
-                                              vals, carry, n)
-        parts: list = []
-        for cols2, caps2, carry2, vch, m in chunks:
-            self._record(op.level + 1, self._wave_repr(cols2, op.out_cols, carry2, vch),
-                         vch, m)
-            parts += self._plan_descend(plan, oi + 1, cols2, caps2, carry2, m)
-        return parts
+            fn = self._plan_emit_fn(op, caps_sig, cap_base, out_cap, out_items)
+            emb, total = self._dispatch(op, fn, (self.g, vals, carry, n), items=n,
+                                        caps_sig=caps_sig)
+            total = int(total)
+            self._ct["device_compactions"].inc()
+            self._ct["items"].inc(total)
+            self._h_wave_items.observe(total)
+            if total == 0:
+                return []
+            return [_host(emb[:total])]
+        hfn = self._plan_expand_host_fn(op, caps_sig, cap_base, out_cap)
+        rows2, counts2 = self._dispatch(op, hfn, (self.g, vals, carry, n), items=n,
+                                        caps_sig=caps_sig, host=True)
+        wave, ii = compact(_host(rows2), _host(counts2), return_src=True)
+        self._ct["host_compactions"].inc()
+        if wave is None:
+            return []
+        self._ct["items"].inc(len(wave))
+        return [np.stack([wave.verts if c == op.level else _host(cols[c])[ii]
+                          for c in op.out_cols], axis=1)]
 
     def _expand_device(self, op, caps_sig, cap_base, out_cap, out_items,
                        vals, carry, n):
@@ -921,11 +1146,13 @@ class WaveRunner:
         survivors, else (rows2, src, verts2, total, caps2, cap2)."""
         self._bump(op)
         fn = self._plan_expand_fn(op, caps_sig, cap_base, out_cap, out_items)
-        rows2, src, verts2, meta = fn(self.g, vals, carry, n)
+        rows2, src, verts2, meta = self._dispatch(op, fn, (self.g, vals, carry, n),
+                                                  items=n, caps_sig=caps_sig)
         total, maxc, *dmaxs = meta.tolist()       # the level's one host sync
         self._ct["host_syncs"].inc()
         self._ct["device_compactions"].inc()
         self._ct["items"].inc(total)
+        self._h_wave_items.observe(total)
         if total == 0:
             return None
         caps2 = {c: _pow2cap(max(d, 1)) for c, d in zip(op.gather_refs, dmaxs)}
@@ -969,7 +1196,8 @@ class WaveRunner:
         the survivor total under ``"count_part"``."""
         self._bump(op, host=True)
         hfn = self._plan_expand_host_fn(op, caps_sig, cap_base, out_cap)
-        rows2, counts2 = hfn(self.g, vals, carry, n)
+        rows2, counts2 = self._dispatch(op, hfn, (self.g, vals, carry, n), items=n,
+                                        caps_sig=caps_sig, host=True)
         rows_h, counts_h = _host(rows2), _host(counts2)     # the level's host sync
         if ride_out is not None:
             ride_out["count_part"] = int(counts_h.sum(dtype=np.int64))
@@ -980,6 +1208,7 @@ class WaveRunner:
             return
         total = len(wave)
         self._ct["items"].inc(total)
+        self._h_wave_items.observe(total)
         fwd = [c for c in op.out_cols if c < op.level]
         hostcols = {c: _host(cols[c])[ii] for c in fwd}
         caps2 = {c: _neighbor_cap(self.host_g, wave.verts if c == op.level

@@ -5,6 +5,7 @@
     m.count_many(["4-clique", "diamond", "4-cycle",
                   "paw", "4-path", "4-star"])   # -> list[int], one pass
     m.aggregate("triangle", "sum")     # -> float, on a weighted graph
+    m.embeddings("triangle")           # -> (N, 3) int32 matrix on the host
 
 The counterpart of ``repro.mining.session``. Every query runs through
 three stages, each memoised for the session's lifetime:
@@ -12,7 +13,8 @@ three stages, each memoised for the session's lifetime:
 **compile** — a query (a name from ``plan._NAMED_QUERIES``, a ``Motif``
 shape, or an explicit ``Pattern``) lowers to a ``WavePlan`` via
 ``plan.compile_pattern``; a ``Motif`` first gets its matching order from
-``forest.schedule_patterns``. Plans are cached per (query, aggregate op).
+``forest.schedule_patterns``. Plans are cached per (query, emit, aggregate
+op): ``emit=True`` compiles the plan whose last level emits embeddings.
 
 **schedule** — for a batch (``count_many``, ``aggregate_many``), the
 matching-order search (``forest.schedule_patterns``) picks each ``Motif``'s
@@ -35,6 +37,17 @@ its unweighted twin's levels and feed chunks (a count plan may fold its
 last level into a degree factor, which a weighted plan cannot); its leaf
 carries the value lane (``engine.WaveRunner._agg_body``).
 
+**Observability** — every session carries a ``repro_torch.obs.Telemetry``
+(``miner.telemetry``): its metrics registry backs every counter of
+``miner.stats``, and its tracer, off unless the session is built with
+``telemetry=Telemetry(enabled=True)`` (or ``MinerConfig.from_args`` of a
+launcher's ``--trace``), records a span tree per query: ``query`` →
+``compile``/``schedule``/``execute`` → ``feed`` and ``L{l}:{kind}`` level
+spans → ``dispatch`` spans around each level call, ended by a synchronize
+on a card. ``telemetry.write_trace(path)`` writes it as Chrome-trace JSON.
+The tracer is no part of any cache key, and with it off the engine opens
+no span and adds no synchronize and no launch.
+
 A session runs on ``cuda`` unless its config says ``device="cpu"``; with
 no card it raises rather than carrying on on the CPU. A ``Miner`` is
 single-threaded.
@@ -42,8 +55,10 @@ single-threaded.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
@@ -86,12 +101,34 @@ class ExecutableCache:
 
 @dataclasses.dataclass(frozen=True)
 class MinerConfig:
-    """Session construction knobs (``Miner(g, **kwargs)`` builds one)."""
+    """Session construction knobs (``Miner(g, **kwargs)`` builds one).
+    ``telemetry`` is observability wiring, not an execution knob: it takes
+    no part in equality or in any cache key."""
 
     chunk: int | None = None          # wave chunk; None = auto-sized
     device: str = "cuda"              # "cpu" runs the kernels' plain versions
     fused_level: bool = True          # general levels: one k-reference launch
     device_compact: bool = True       # False: the host compaction path
+    # the session's Telemetry; None = a fresh one with tracing off
+    telemetry: Telemetry | None = dataclasses.field(default=None, compare=False,
+                                                    repr=False)
+
+    @classmethod
+    def from_args(cls, args, **overrides) -> "MinerConfig":
+        """A config from a parsed launcher namespace (``launch.cli`` flag
+        names): ``--chunk`` -> ``chunk``, ``--trace OUT`` -> a Telemetry with
+        tracing on, ``--device`` -> ``device``. Missing attributes take the
+        field defaults; ``overrides`` win over flags. ``--shards`` > 1 raises:
+        sharded mining is not in the port yet."""
+        shards = int(getattr(args, "shards", 0) or 0)
+        if shards > 1:
+            raise NotImplementedError(
+                f"--shards {shards}: the port mines on one device; sharded "
+                "mining is the next slice (ROADMAP.md §1.3)")
+        cfg = cls(chunk=getattr(args, "chunk", None),
+                  device=getattr(args, "device", None) or "cuda",
+                  telemetry=Telemetry(enabled=bool(getattr(args, "trace", ""))))
+        return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 class Miner:
@@ -102,7 +139,9 @@ class Miner:
                      "schedule_hits", "schedule_misses")
 
     def __init__(self, graph: CSRGraph, config: MinerConfig | None = None,
-                 **overrides):
+                 telemetry: Telemetry | None = None, **overrides):
+        if telemetry is not None:
+            overrides["telemetry"] = telemetry
         if config is None:
             config = MinerConfig(**overrides)
         elif overrides:
@@ -114,7 +153,9 @@ class Miner:
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "mine with the kernels' plain torch versions")
         self.config = config
-        self.telemetry = Telemetry()
+        # one Telemetry for the session and its runner: every counter lands
+        # in one registry, every span of a traced query in one tracer
+        self.telemetry = config.telemetry if config.telemetry is not None else Telemetry()
         self.metrics = self.telemetry.metrics
         # the CSR tensors move to the device once per session; queries only
         # ship per-chunk vertex ids after this
@@ -130,52 +171,68 @@ class Miner:
         self._sct = {k: self._stats.expose_counter(k, self.metrics)
                      for k in self._SESSION_KEYS}
 
-    def compile(self, query, aggregate: str | None = None) -> WavePlan:
-        """Lower one query to a ``WavePlan`` (cached); ``aggregate`` compiles
-        the weighted (SVPU value) program."""
-        resolved = resolve_query(query)
-        key = (resolved, False, aggregate)     # (query, emit, aggregate)
-        plan = self._plans.get(key)
-        if plan is not None:
-            self._sct["plan_hits"].inc()
-            return plan
-        self._sct["plan_misses"].inc()
-        pat = schedule_patterns([resolved])[0] if isinstance(resolved, Motif) \
-            else resolved
-        plan = self._plans[key] = compile_pattern(pat, aggregate=aggregate)
-        return plan
+    def _span(self, name: str, **attrs):
+        """A span of the session's tracer; a no-op context with tracing off."""
+        tr = self.telemetry.tracer
+        return tr.span(name, **attrs) if tr.enabled else nullcontext()
 
-    def schedule(self, queries: Sequence, aggregate: str | None = None) -> PlanForest:
+    def compile(self, query, emit: bool = False,
+                aggregate: str | None = None) -> WavePlan:
+        """Lower one query to a ``WavePlan`` (cached); ``emit`` compiles the
+        plan whose last level emits embeddings, ``aggregate`` the weighted
+        (SVPU value) program."""
+        with self._span("compile", query=str(query), emit=emit):
+            resolved = resolve_query(query)
+            key = (resolved, emit, aggregate)
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._sct["plan_hits"].inc()
+                return plan
+            self._sct["plan_misses"].inc()
+            pat = schedule_patterns([resolved])[0] if isinstance(resolved, Motif) \
+                else resolved
+            plan = self._plans[key] = compile_pattern(pat, emit=emit, aggregate=aggregate)
+            return plan
+
+    def schedule(self, queries: Sequence, emit: bool = False,
+                 aggregate: str | None = None) -> PlanForest:
         """Lower a batch to one ``PlanForest`` (cached per batch): ``Motif``
         members get their matching orders from the joint shared-prefix
         search, with explicit ``Pattern`` members as fixed points, and the
         compiled plans merge into one prefix trie."""
-        resolved = tuple(resolve_query(q) for q in queries)
-        key = (resolved, False, aggregate)     # (batch, emit, aggregate)
-        forest = self._forests.get(key)
-        if forest is not None:
-            self._sct["schedule_hits"].inc()
+        with self._span("schedule", queries=len(queries), emit=emit):
+            resolved = tuple(resolve_query(q) for q in queries)
+            key = (resolved, emit, aggregate)
+            forest = self._forests.get(key)
+            if forest is not None:
+                self._sct["schedule_hits"].inc()
+                return forest
+            self._sct["schedule_misses"].inc()
+            plans = []
+            for r, p in zip(resolved, schedule_patterns(resolved)):
+                plan = compile_pattern(p, emit=emit, aggregate=aggregate)
+                self._plans.setdefault((r, emit, aggregate), plan)
+                plans.append(plan)
+            forest = self._forests[key] = build_forest(plans)
             return forest
-        self._sct["schedule_misses"].inc()
-        plans = []
-        for r, p in zip(resolved, schedule_patterns(resolved)):
-            plan = compile_pattern(p, aggregate=aggregate)
-            self._plans.setdefault((r, False, aggregate), plan)
-            plans.append(plan)
-        forest = self._forests[key] = build_forest(plans)
-        return forest
+
+    def _query_span(self, kind: str, **attrs):
+        """The root span of one traced query."""
+        return self._span("query", kind=kind, **attrs)
 
     def count(self, query) -> int:
         """Count embeddings of one pattern query."""
         self._sct["queries"].inc()
-        return self._runner.run(self.compile(query))
+        with self._query_span("count", query=str(query)):
+            return self._runner.run(self.compile(query))
 
     def count_many(self, queries: Sequence) -> list[int]:
         """Count a batch of queries in one fused forest pass; results are
         positional and equal to per-query ``count`` calls on the same
         scheduled patterns."""
         self._sct["queries"].inc()
-        return self._runner.run_set(self.schedule(queries))
+        with self._query_span("count_many", queries=len(queries)):
+            return self._runner.run_set(self.schedule(queries))
 
     def _require_values(self) -> None:
         if self.graph.edge_values is None:
@@ -190,7 +247,8 @@ class Miner:
         pattern-edge weights (0.0 when the query has no embedding)."""
         self._require_values()
         self._sct["queries"].inc()
-        return self._runner.run(self.compile(query, aggregate=op))
+        with self._query_span("aggregate", query=str(query), op=op):
+            return self._runner.run(self.compile(query, aggregate=op))
 
     def aggregate_many(self, queries: Sequence, op: str = "sum") -> list[float]:
         """Aggregate a batch of queries in one fused forest pass: the
@@ -198,23 +256,34 @@ class Miner:
         leaves do."""
         self._require_values()
         self._sct["queries"].inc()
-        return self._runner.run_set(self.schedule(queries, aggregate=op))
+        with self._query_span("aggregate_many", queries=len(queries), op=op):
+            return self._runner.run_set(self.schedule(queries, aggregate=op))
+
+    def embeddings(self, query) -> np.ndarray:
+        """Enumerate the embeddings of one query as an (N, k) int32 matrix on
+        the host, column c the vertex matched to pattern vertex c, rows in
+        the order the reference engine emits them."""
+        self._sct["queries"].inc()
+        with self._query_span("embeddings", query=str(query)):
+            return self._runner.run(self.compile(query, emit=True))
 
     def run_plans(self, plans: Sequence[WavePlan]) -> list:
-        """Execute compiled plans: one runs directly, several fuse through a
-        forest cached on their canonical keys."""
+        """Execute compiled plans (count, aggregate or emit; FSM's feed):
+        one runs directly, several fuse through a forest cached on their
+        canonical keys."""
         self._sct["queries"].inc()
         plans = list(plans)
-        if len(plans) == 1:
-            return [self._runner.run(plans[0])]
-        key = ("plans", tuple(p.canonical_key() for p in plans))
-        forest = self._forests.get(key)
-        if forest is None:
-            self._sct["schedule_misses"].inc()
-            forest = self._forests[key] = build_forest(plans)
-        else:
-            self._sct["schedule_hits"].inc()
-        return self._runner.run_set(forest)
+        with self._query_span("run_plans", plans=len(plans)):
+            if len(plans) == 1:
+                return [self._runner.run(plans[0])]
+            key = ("plans", tuple(p.canonical_key() for p in plans))
+            forest = self._forests.get(key)
+            if forest is None:
+                self._sct["schedule_misses"].inc()
+                forest = self._forests[key] = build_forest(plans)
+            else:
+                self._sct["schedule_hits"].inc()
+            return self._runner.run_set(forest)
 
     @property
     def runner(self) -> WaveRunner:

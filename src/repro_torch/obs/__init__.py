@@ -5,9 +5,11 @@ The counterpart of ``repro.obs``: one ``Telemetry`` object per session.
 * ``telemetry.metrics`` — a ``MetricsRegistry`` of typed counters /
   gauges / histograms. Always on: the registry is the backing store of
   the engine's ``stats`` dicts (derived views over its counters).
-* ``telemetry.tracer`` — a ``Tracer`` producing span trees. Off by
-  default, and the port's engine opens no spans yet (dispatch spans come
-  with the telemetry slice of the port).
+* ``telemetry.tracer`` — a ``Tracer`` producing per-query span trees
+  (query → compile/schedule/execute → feed and per-level spans → one
+  ``dispatch`` span per level call, ended by ``torch.cuda.synchronize()``
+  on a card so it holds the call's device time). Off by default: a
+  disabled tracer records nothing, adds no synchronize and no launch.
 * exporters — Chrome-trace/Perfetto JSON, a Prometheus text snapshot, and
   ``snapshot()`` (metrics + per-span aggregates).
 

@@ -681,3 +681,77 @@ def test_inter_expand_levels_on_card_gather_no_padded_rows(cuda, monkeypatch):
         assert dict(m.stats["runner"]) == want[q][1], q
         calls = m.stats["runner"]["device_compactions"] - c0
         assert K.intersect_expand.launches - n0 == K.expand_items.launches - n1 == calls > 0
+
+
+@pytest.mark.parametrize("device_compact", [True, False])
+def test_embeddings_on_card_equal_cpu(cuda, device_compact):
+    """Emit levels on the card, in both modes: the CPU run's rows and
+    counters. Device path: each INTER emit call one expand-CSR and one items
+    launch, a SUB one a mark, a general one a k-reference launch; host path:
+    one compact-rows launch per host compaction."""
+    from repro_torch.mining.engine import WaveRunner
+    g = get_dataset("email-eu-core", 0.25)
+    dev = Miner(g, device_compact=device_compact)
+    cpu = Miner(g, device="cpu", device_compact=device_compact)
+    shape_kernel = {"inter": K.intersect_expand, "sub": K.intersect_mark,
+                    None: K.intersect_multi}
+    for q in ("triangle", "4-clique", "diamond", "4-cycle"):
+        emit = dev.compile(q, emit=True).ops[-1]
+        kernel = shape_kernel[WaveRunner._fused_shape(emit)]
+        n0, c0, h0 = kernel.launches, CP.compact_rows.launches, \
+            dev.stats["runner"]["host_compactions"]
+        calls0 = dev.runner.level_execs.get((emit.kind, emit.level), 0)
+        got, want = dev.embeddings(q), cpu.embeddings(q)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == np.int32 and len(got) > 0, q
+        assert dev.stats["runner"] == cpu.stats["runner"], q
+        calls = dev.runner.level_execs[emit.kind, emit.level] - calls0
+        hosted = dev.stats["runner"]["host_compactions"] - h0
+        assert CP.compact_rows.launches - c0 == hosted
+        if device_compact:
+            assert kernel.launches - n0 >= calls > 0 and hosted == 0, q
+        else:
+            assert hosted >= calls > 0, q
+
+
+def test_fsm_and_its_feed_on_card_equal_cpu(cuda):
+    """The FSM feed through a [count, emit] forest and fsm / sfsm with the
+    triangle feed on the card: the CPU run's results."""
+    from repro_torch.mining import apps
+    from repro_torch.mining.fsm import fsm, random_labels, sfsm
+    g = get_dataset("email-eu-core", 0.25)
+    dev, cpu = Miner(g), Miner(g, device="cpu")
+    plans = [dev.compile("triangle"), *apps.FSM_FEED_PLANS]
+    (count, rows), (ccount, crows) = dev.run_plans(plans), cpu.run_plans(plans)
+    assert count == ccount == len(rows) == 11502
+    np.testing.assert_array_equal(rows, crows)
+    labels = random_labels(g.num_vertices, 4, seed=1)
+    for fn in (fsm, sfsm):
+        assert fn(g, labels, 20, miner=dev) == fn(g, labels, 20, miner=cpu)
+
+
+def test_traced_dispatch_synchronizes_on_card_only_when_tracing(cuda, monkeypatch):
+    """Tracing on: one synchronize per dispatch span; off: none, and the
+    same kernel launches either way."""
+    from repro_torch.obs import Telemetry
+    g = get_dataset("email-eu-core", 0.25)
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(a) or real(*a))
+    launched = {}
+    for traced in (False, True):
+        tel = Telemetry(enabled=traced)
+        m = Miner(g, telemetry=tel)
+        n0 = (K.intersect_count.launches, K.intersect_expand.launches,
+              K.intersect_multi.launches)
+        del syncs[:]
+        got = (m.count("4-clique"), m.count_many(["diamond", "4-cycle"]),
+               len(m.embeddings("diamond")))
+        launched[traced] = (K.intersect_count.launches - n0[0],
+                            K.intersect_expand.launches - n0[1],
+                            K.intersect_multi.launches - n0[2], got)
+        if traced:
+            assert len(syncs) == len(tel.tracer.spans("dispatch")) > 0
+        else:
+            assert syncs == []
+    assert launched[True] == launched[False]

@@ -247,12 +247,19 @@ def test_seeded_random_pattern_sets_fuse_bit_identically(seed):
             jbuild_forest(jplans)), (pats, dc)
 
 
-def test_forest_with_emit_plans_raises():
-    m = Miner(build_csr(TINY_EDGES, 18), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        m.run_plans([P.compile_pattern(P.TRIANGLE),
-                     P.compile_pattern(P.TRIANGLE, emit=True)])
-    assert m.stats["runner"]["level_kernel_dispatches"] == 0
+def test_forest_with_emit_plans_equals_jax():
+    """A mixed [count, emit] forest: results, counters and level_execs equal
+    the JAX engine's in both modes; the count is the emitted rows."""
+    plans = [P.compile_pattern(P.TRIANGLE), P.compile_pattern(P.TRIANGLE, emit=True)]
+    jplans = [JP.compile_pattern(JP.TRIANGLE), JP.compile_pattern(JP.TRIANGLE, emit=True)]
+    for dc in (True, False):
+        m = Miner(build_csr(TINY_EDGES, 18), device="cpu", device_compact=dc)
+        jm = JMiner(jbuild_csr(TINY_EDGES, 18), backend="xla", device_compact=dc)
+        count, rows = m.run_plans(plans)
+        jcount, jrows = jm.run_plans(jplans)
+        assert count == jcount == len(rows) > 0
+        np.testing.assert_array_equal(rows, np.asarray(jrows))
+        assert _state(m) == _state(jm), dc
 
 
 @pytest.mark.parametrize("app,want", [
