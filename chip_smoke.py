@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,build,parity,csr     # kernels only
     python3 chip_smoke.py --phases card,build,emit           # the emit path only
+    python3 chip_smoke.py --phases card,build,shard          # the sharded path only
     python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
 Phases, each printing its own lines and its seconds; any mismatch or
@@ -82,18 +83,32 @@ exception exits non-zero:
               runner stats, session counters, registry == legacy, traced ==
               untraced (counts, stats, kernel launches); mico 4-clique
               traced and untraced, the traced run's top self-times
- 13. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
+ 13. shard    Miner(mesh=8) with eight shards on the first card
+              (mining.shard): ci_gate.py's sharded and mesh-8 telemetry mixes
+              on email-eu-core 0.25 against baseline.json (dispatches per
+              pass {1: 43, 8: 16}, 12 cross-shard reductions, the per-shard
+              feed items, host syncs 19, span counts, nothing rebuilt on the
+              second pass); mico's six MAIN_PATH counts at mesh 1 and 8 with
+              their walls, mico 4-clique's device busy share at both, the
+              weighted triangle sum, the triangle embeddings (sorted rows
+              equal to the unsharded session's), wiki-vote's 4-motifs through
+              count_many; with two or more cards, mico T and 4C over a mesh
+              of distinct cards
+ 14. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
               equal to the sorted-row count of the same rows; the
               merge-against-bitmap crossover sweep of
               benchmarks/bench_kernels.py, timed on the card
- 14. profile  mico's queries once more under torch.profiler, then mico's
+ 15. profile  mico's queries once more under torch.profiler, then mico's
               4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
- 15. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 16. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
-(5, 6, 7, 9, 10 or 13) and must be > 0 just after it; the kernels line
-reports those counts (``emit_launches``: the emit path's). --phases runs a
+(5, 6, 7, 9, 10 or 14) and must be > 0 just after it; in 13 the counts are
+zeroed just before each mesh-8 call and read just after it, summed over
+those calls alone, so the mesh-1 runs beside them never count. The kernels
+line reports those counts (``emit_launches``: the emit path's,
+``shard_launches`` the sharded path's). --phases runs a
 subset (the result lines are printed only when every phase ran); --src
 measures another checkout's repro_torch, such as a parent commit unpacked
 with git archive, with this script.
@@ -303,6 +318,29 @@ TELEMETRY = {
                          "schedule_hits": 0, "schedule_misses": 1},
     "registry_equals_legacy": True, "enabled_disabled_parity": True,
 }
+# the shard phase's mesh, eight shards on the first card, and benchmarks/
+# baseline.json's exact.sharded.email-eu-core@0.25.* and
+# exact.telemetry.email-eu-core@0.25.mesh8.* (the JAX package's counters on
+# an 8-device mesh: ci_gate.py's measure_sharded and measure_telemetry mixes)
+SHARDS = 8
+SHARD_DEVICES = ("cuda:0",) * SHARDS
+SHARD_FEED = [4743, 4743, 4743, 4743, 4743, 4743, 4740, 4737]
+SHARDED = {"dispatches_per_pass": {1: 43, 8: 16}, "psum_reductions_per_pass": 12,
+           "shard_feed_items": SHARD_FEED, "rebuilds_second_pass": 0}
+TELEMETRY_MESH8 = {
+    "span_counts": {"dispatch": 16, "level": 22, "span": 20},
+    "runner_stats": {"count_rides": 0, "device_compactions": 4, "exec_hits": 5,
+                     "exec_misses": 20, "host_compactions": 0, "host_syncs": 19,
+                     "items": 369821, "level_kernel_dispatches": 16,
+                     "psum_reductions": 12, "shard_feed_items": SHARD_FEED},
+    "session_counters": TELEMETRY["session_counters"],
+    "registry_equals_legacy": True, "enabled_disabled_parity": True,
+}
+# mico's queries at mesh 8 against MAIN_PATH's counts; the kernels the shard
+# phase must launch (rows 1-5 of PERF.md's table, the expand's items pass too)
+SHARD_MICO = ("triangle", "4-clique", "5-clique", "three-chain-induced", "diamond", "paw")
+SHARD_KERNELS = ("intersect_count", "intersect_expand", "expand_items", "intersect_mark",
+                 "intersect_multi", "intersect_multi_agg")
 # the bitmap crossover sweep (benchmarks/bench_kernels.py): 128 rows of up
 # to 1024 keys over a key space of 8192, at these fractions of it
 CROSSOVER = (128, 1024, 8192, (0.01, 0.05, 0.1, 0.2, 0.4))
@@ -2075,6 +2113,192 @@ def phase_telemetry(graphs: dict, card: str) -> None:
           + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in top), flush=True)
 
 
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _gate_mix(miner, names) -> dict:
+    """benchmarks/bench_mining.py's sharded_scaling_report mix."""
+    res = {"T": miner.count("triangle"), "TC": miner.count("three-chain"),
+           "TT": miner.count("tailed-triangle"), "4C": miner.count("4-clique")}
+    res.update(zip(names, miner.count_many(names)))
+    return res
+
+
+class _MeshLaunches:
+    """The shard phase's launches per kernel, of its mesh-8 calls alone:
+    each call run through it has every count set to 0 just before it and
+    read just after it, and the reads are summed, so no mesh-1 comparison
+    run counts."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(SHARD_KERNELS, 0)
+
+    def __call__(self, run):
+        zero_launches()
+        out = run()
+        W = wrappers()
+        for k in self.total:
+            self.total[k] += W[k].launches
+        return out
+
+
+def _shard_gate(g, names, card: str, on_mesh: _MeshLaunches) -> None:
+    """ci_gate.py's measure_sharded mix, twice at mesh 1 and 8, then its
+    measure_telemetry mix traced and untraced at mesh 8: baseline.json's
+    values. The mesh-8 runs go through ``on_mesh``."""
+    from repro_torch import Miner
+    from repro_torch.obs import Telemetry
+    want_counts = {**{k: SESSION_COUNTS[k] for k in ("T", "TC", "TT", "4C")},
+                   **SESSION_COUNTS["4M"]}
+    got = {}
+    for shards in (1, SHARDS):
+        kw = {} if shards == 1 else {"mesh": shards, "mesh_devices": SHARD_DEVICES}
+        m = Miner(g, device=DEVICE, **kw)
+        track = on_mesh if shards != 1 else (lambda run: run())
+        first, t1 = _timed(lambda: track(lambda: _gate_mix(m, names)))
+        rebuilds, execs = m.stats["rebuilds"], sum(m.runner.level_execs.values())
+        psums = m.stats["runner"].get("psum_reductions", 0)
+        second, t2 = _timed(lambda: track(lambda: _gate_mix(m, names)))
+        rs = m.stats["runner"]
+        got[shards] = {"dispatches": sum(m.runner.level_execs.values()) - execs,
+                       "psums": rs.get("psum_reductions", 0) - psums,
+                       "feed": [v // 2 for v in rs.get("shard_feed_items", [])],
+                       "rebuilds": m.stats["rebuilds"] - rebuilds}
+        print(f"[shard] email-eu-core x0.25 gate mix at mesh {shards}: {first == want_counts} "
+              f"counts; {t1:.3f}s then {t2:.3f}s ({card}); second pass {got[shards]}",
+              flush=True)
+        if not first == second == want_counts:
+            raise SystemExit(f"[shard] MISMATCH gate mix at mesh {shards}: {second}")
+    summary = {"dispatches_per_pass": {s: r["dispatches"] for s, r in got.items()},
+               "psum_reductions_per_pass": got[SHARDS]["psums"],
+               "shard_feed_items": got[SHARDS]["feed"],
+               "rebuilds_second_pass": max(r["rebuilds"] for r in got.values())}
+    if summary != SHARDED:
+        raise SystemExit(f"[shard] MISMATCH sharded counters {summary} != {SHARDED}")
+    runs = {}
+    for traced in (True, False):
+        tel = Telemetry(enabled=traced)
+        m = Miner(g, device=DEVICE, mesh=SHARDS, mesh_devices=SHARD_DEVICES, telemetry=tel)
+        counts, dt = _timed(lambda: on_mesh(lambda: _telemetry_mix(m, names)))
+        runs[traced] = (m, tel, counts, dt)
+    (m, tel, counts, dt), (plain, _, plain_counts, plain_dt) = runs[True], runs[False]
+    reg, rs, sess = tel.metrics, dict(m.runner.stats), m.stats
+    keys = tuple(TELEMETRY_MESH8["session_counters"])
+    fam = reg.series("shard_feed_items")
+    by_cat: dict = {}
+    for sp in tel.tracer.spans():
+        by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
+    tgot = {"span_counts": dict(sorted(by_cat.items())),
+            "runner_stats": dict(sorted(rs.items())),
+            "session_counters": {k: sess[k] for k in keys},
+            "registry_equals_legacy": all(reg.value(k) == v for k, v in rs.items()
+                                          if not isinstance(v, list))
+            and [fam[(("shard", s),)].value for s in range(SHARDS)] == rs["shard_feed_items"]
+            and all(reg.value(k) == sess[k] for k in keys),
+            "enabled_disabled_parity": counts == plain_counts and sess == plain.stats}
+    print(f"[shard] email-eu-core x0.25 telemetry mix at mesh {SHARDS}: traced {dt:.3f}s, "
+          f"untraced {plain_dt:.3f}s ({card}): {tgot}", flush=True)
+    if tgot != TELEMETRY_MESH8:
+        raise SystemExit(f"[shard] MISMATCH mesh-8 telemetry {tgot} != {TELEMETRY_MESH8}")
+
+
+def phase_shard(graphs: dict, card: str) -> dict:
+    """Miner(mesh=8) over one card (eight shards on cuda:0): baseline.json's
+    sharded and mesh-8 telemetry counters on email-eu-core 0.25; mico at full
+    width (MAIN_PATH's six counts, the weighted T sum, the T embeddings'
+    sorted rows equal to the unsharded session's) and wiki-vote's 4-motifs;
+    the walls at mesh 1 and 8 and the device busy share of mico 4C; on a
+    host of two or more cards, mico T and 4C over a mesh of distinct cards.
+    Returns the launches per kernel of the phase's sharded runs alone (the
+    mesh-1 runs beside them are left out of the count)."""
+    import numpy as np
+
+    from repro_torch import Miner
+    from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
+    names = list(FOUR_MOTIF_SHAPES)
+    want = {(n, q): w for n, _, qs in MAIN_PATH for q, w in qs}
+    on_mesh = _MeshLaunches()
+    _shard_gate(graphs["email-eu-core", 0.25], names, card, on_mesh)
+    mico = graphs["mico", 1.0]
+    one = Miner(mico, device=DEVICE)
+    mesh = Miner(mico, device=DEVICE, mesh=SHARDS, mesh_devices=SHARD_DEVICES)
+    walls = {}
+    for query in SHARD_MICO:
+        for label, m, track in (("1", one, lambda run: run()),
+                                (str(SHARDS), mesh, on_mesh)):
+            got, first = _timed(lambda: track(lambda: m.count(query)))
+            again, warm = _timed(lambda: track(lambda: m.count(query)))
+            walls[query, label] = warm
+            if got != want["mico", query] or again != got:
+                raise SystemExit(f"[shard] MISMATCH mico {query} at mesh {label}: {got}")
+            print(f"[shard] mico x1.0 {query} at mesh {label} = {got} (MAIN_PATH: "
+                  f"{want['mico', query]}): first {first:.3f}s, again {warm:.3f}s ({card})",
+                  flush=True)
+    print(f"[shard] mico x1.0 six queries, warm walls: mesh 1 "
+          f"{sum(walls[q, '1'] for q in SHARD_MICO):.3f}s, mesh {SHARDS} "
+          f"{sum(walls[q, str(SHARDS)] for q in SHARD_MICO):.3f}s ({card}); runner at mesh "
+          f"{SHARDS}: {mesh.stats['runner']}", flush=True)
+    for label, m, track in (("1", one, lambda run: run()), (str(SHARDS), mesh, on_mesh)):
+        wall, busy, traced, got = _busy(lambda: track(lambda: m.count("4-clique")))
+        print(f"[shard] mico x1.0 4-clique at mesh {label}: {wall:.1f} ms untraced, device "
+              f"busy {busy:.1f} ms = {100 * busy / wall:.1f}% ({card}; traced run "
+              f"{traced:.1f} ms)", flush=True)
+        if got != want["mico", "4-clique"]:
+            raise SystemExit(f"[shard] MISMATCH mico 4-clique under the profiler: {got}")
+    w_one = Miner(weighted(mico), device=DEVICE)
+    w_mesh = Miner(weighted(mico), device=DEVICE, mesh=SHARDS, mesh_devices=SHARD_DEVICES)
+    wsum = dict(((q, op), v) for q, op, v in WEIGHTED[0][2])["triangle", "sum"]
+    got, dt = _timed(lambda: on_mesh(lambda: w_mesh.aggregate("triangle", "sum")))
+    print(f"[shard] mico x1.0 weighted triangle sum at mesh {SHARDS} = {got!r} (JAX "
+          f"package: {wsum!r}) {dt:.3f}s ({card})", flush=True)
+    if got != wsum or w_one.aggregate("triangle", "sum") != wsum:
+        raise SystemExit(f"[shard] MISMATCH mico weighted triangle sum {got!r}")
+    rows, dt = _timed(lambda: on_mesh(lambda: mesh.embeddings("triangle")))
+    flat = one.embeddings("triangle")
+
+    def ordered(e):
+        return e[np.lexsort(e.T[::-1])]
+    sha, flat_sha = _sha(ordered(rows)), _sha(ordered(flat))
+    print(f"[shard] mico x1.0 triangle embeddings at mesh {SHARDS}: {rows.shape} rows "
+          f"{dt:.3f}s ({card}); sorted sha256 {sha[:16]} (mesh 1: {flat_sha[:16]}; "
+          f"mesh 1 unsorted {_sha(flat)[:16]}, JAX package {EMIT[0][2][0][2][:16]})",
+          flush=True)
+    if sha != flat_sha or _sha(flat) != EMIT[0][2][0][2] or rows.shape != flat.shape:
+        raise SystemExit("[shard] MISMATCH mico triangle embeddings at mesh 8")
+    wiki = Miner(graphs["wiki-vote", 1.0], device=DEVICE, mesh=SHARDS,
+                 mesh_devices=SHARD_DEVICES)
+    got, dt = _timed(lambda: on_mesh(lambda: wiki.count_many(names)))
+    want4 = [WIKI_4CLIQUE] + [want["wiki-vote", q] for q in names[1:]]
+    print(f"[shard] wiki-vote x1.0 count_many 4M at mesh {SHARDS} = {got} (JAX package: "
+          f"{want4}) {dt:.3f}s ({card})", flush=True)
+    if got != want4:
+        raise SystemExit(f"[shard] MISMATCH wiki-vote 4M at mesh {SHARDS}")
+    cards = torch.cuda.device_count()
+    print(f"[shard] torch.cuda.device_count() = {cards}", flush=True)
+    if cards >= 2:
+        k = min(cards, SHARDS)
+        multi = Miner(mico, device=DEVICE, mesh=k)
+        for query in ("triangle", "4-clique"):
+            _sync_all()
+            t0 = time.perf_counter()
+            got = on_mesh(lambda: multi.count(query))
+            _sync_all()
+            print(f"[shard] mico x1.0 {query} over {k} cards = {got} "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+            if got != want["mico", query]:
+                raise SystemExit(f"[shard] MISMATCH mico {query} over {k} cards")
+    else:
+        print("[shard] one card: the mesh over distinct cards was not run", flush=True)
+    launches = on_mesh.total
+    print(f"[shard] launches of the mesh-{SHARDS} runs alone {launches}", flush=True)
+    for k, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"[shard] {k} was never launched on the shard path")
+    return launches
+
+
 def phase_bitmap(graphs: dict) -> dict:
     """keys_to_bitmap + xbitmap_count on mico's hub half-edges, equal to the
     sorted-row count; then the crossover sweep, timed."""
@@ -2214,7 +2438,7 @@ def phase_profile(graphs: dict) -> None:
 
 
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
-          "host", "emit", "fsm", "telemetry", "bitmap", "profile")
+          "host", "emit", "fsm", "telemetry", "shard", "bitmap", "profile")
 
 
 def main(argv=None) -> int:
@@ -2254,7 +2478,8 @@ def main(argv=None) -> int:
         report = timed("parity", phase_parity)
     if "csr" in run:
         timed("csr", phase_csr, report)
-    if run & {"main", "forest", "host", "emit", "fsm", "telemetry", "bitmap", "profile"}:
+    if run & {"main", "forest", "host", "emit", "fsm", "telemetry", "shard", "bitmap",
+              "profile"}:
         graphs = timed("graphs", build_graphs)
     if "main" in run:
         counts, launches = timed("main", phase_main_path, graphs)
@@ -2273,6 +2498,9 @@ def main(argv=None) -> int:
         timed("fsm", phase_fsm, graphs, card)
     if "telemetry" in run:
         timed("telemetry", phase_telemetry, graphs, card)
+    shard_launches = {}
+    if "shard" in run:
+        shard_launches = timed("shard", phase_shard, graphs, card)
     if "bitmap" in run:
         launches.update(timed("bitmap", phase_bitmap, graphs))
     if "profile" in run:
@@ -2285,7 +2513,8 @@ def main(argv=None) -> int:
     # grid_launches); its grid_* keys time the grid form
     report["vinter"]["grid_launches"] = launches["vinter_grid"]
     rows = [{"name": name, **KERNELS[name], "launches": launches[name],
-             "emit_launches": emit_launches.get(name, 0), "parity": True, **report[name]}
+             "emit_launches": emit_launches.get(name, 0),
+             "shard_launches": shard_launches.get(name, 0), "parity": True, **report[name]}
             for name in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

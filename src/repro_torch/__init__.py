@@ -7,8 +7,10 @@ The counterpart of ``repro`` (the JAX package), module for module:
   graph/       CSR graph substrate as torch tensors, synthetic datasets
   kernels/     hand-written CUDA kernels (``csrc/``), ``build.py`` that builds them, and
                their op wrappers, each beside its plain torch version
-  mining/      pattern plans, the wavefront engine, the ``Miner`` session, and
-               the workloads over it (FSM, the exhaustive baseline, ``apps``)
+  mining/      pattern plans, the wavefront engine (and its sharded runner), the
+               ``Miner`` session, and the workloads over it (FSM, the
+               exhaustive baseline, ``apps``)
+  distributed/ the mining mesh (a list of devices), the degree-balanced partitioner
   obs/         metrics registry behind the engine's counters, span tracer
   launch/      ``python -m repro_torch.launch.mine``
 

@@ -32,8 +32,8 @@ def add_session_args(ap: argparse.ArgumentParser) -> None:
     that builds a ``Miner`` (consumed by ``MinerConfig.from_args``)."""
     ap.add_argument("--shards", type=int, default=0,
                     help="mine data-parallel over an N-way device mesh "
-                         "(on CPU set XLA_FLAGS="
-                         "--xla_force_host_platform_device_count=N)")
+                         "(the first N cards; N times the CPU with "
+                         "--device cpu)")
     ap.add_argument("--chunk", type=int, default=None,
                     help="wave chunk size (default: auto-sized)")
     ap.add_argument("--trace", default="", metavar="OUT.json",

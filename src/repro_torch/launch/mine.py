@@ -29,13 +29,21 @@ Session flags (``launch.cli.add_session_args``, read by
 ``MinerConfig.from_args``): ``--chunk``; ``--trace OUT.json`` turns span
 tracing on and writes the run's span tree as Chrome-trace JSON (the top
 self-times printed); ``--session-stats`` prints the cache counters and the
-metrics registry. ``--shards`` > 1 raises: the port mines on one device.
+metrics registry; ``--shards N`` mines over an N-way mesh (the first N
+cards, or N times the CPU with ``--device cpu``; ``Miner(mesh_devices=)``
+puts several shards on one card) and ``--session-stats`` then prints the
+per-shard feed items and the cross-shard reductions. ``--partitions N``
+prints the load imbalance of a degree-balanced N-way vertex partition
+(``distributed.fault_tolerance``).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
+
+from repro_torch.distributed.fault_tolerance import balanced_vertex_partition
 from repro_torch.graph.datasets import DATASETS, dataset_stats, get_dataset
 from repro_torch.mining import baseline, exhaustive
 from repro_torch.mining.fsm import fsm, random_labels, sfsm
@@ -128,6 +136,8 @@ def main(argv=None):
     ap.add_argument("--exhaustive", default="", metavar="PATTERN",
                     help="also count PATTERN by the GRAMER-style exhaustive check ("
                          + ", ".join(exhaustive.PATTERN_CHECKS) + ")")
+    ap.add_argument("--partitions", type=int, default=0,
+                    help="print degree-balanced partition stats (straggler)")
     add_session_args(ap)
     args = ap.parse_args(argv)
     if args.baseline and args.app not in BASELINES:
@@ -141,6 +151,9 @@ def main(argv=None):
     print(f"[mine] {args.dataset} x{args.scale}: {dataset_stats(g)}")
     miner = Miner(g, MinerConfig.from_args(args))
     telemetry = miner.telemetry
+    if miner.mesh is not None:
+        print(f"[mine] mesh: {args.shards}-way ({dict(miner.mesh.shape)}) over "
+              f"{', '.join(str(d) for d in dict.fromkeys(miner.mesh.devices))}")
     labels = random_labels(g.num_vertices, args.labels, seed=1) \
         if args.app in FSM_APPS else None
     if args.app in ("F3M", "F4M"):
@@ -174,12 +187,24 @@ def main(argv=None):
         n = exhaustive.exhaustive_count(g, args.exhaustive)
         print(f"[mine] exhaustive({args.exhaustive}) = {n} "
               f"({time.perf_counter() - t0:.2f}s, GRAMER-style)")
+    if args.partitions:
+        degrees = g.degrees.cpu().numpy()
+        assign = balanced_vertex_partition(degrees, args.partitions)
+        loads = np.bincount(assign, weights=degrees.astype(np.float64) ** 2,
+                            minlength=args.partitions)
+        print(f"[mine] {args.partitions} partitions: load imbalance "
+              f"max/mean = {loads.max() / loads.mean():.3f}")
     if args.session_stats:
         st = miner.stats
         print(f"[mine] session: {st['queries']} queries, exec cache "
               f"{st['exec_cache']['hits']} hits / {st['exec_cache']['misses']} builds, "
               f"plan cache {st['plan_hits']}/{st['plan_misses']}, schedule cache "
               f"{st['schedule_hits']}/{st['schedule_misses']}")
+        if miner.mesh is not None:
+            rs = st["runner"]
+            fi = rs["shard_feed_items"]
+            print(f"[mine] shards: feed items {fi} (max/min {max(fi) / max(min(fi), 1):.2f}), "
+                  f"{rs['psum_reductions']} psum reductions")
         print("[mine] metrics:")
         print(telemetry.prometheus_text(), end="")
     return res

@@ -178,6 +178,24 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _live(n) -> int:
+    """A chunk's live items: ``n``, or the sum of a sharded chunk's
+    per-shard counts (``mining.shard``)."""
+    return n if isinstance(n, int) else int(np.sum(n))
+
+
+def _one_ahead(items):
+    """Yield ``items`` one behind their production: item N+1 (its uploads
+    issued) is made before item N is handed to the consumer."""
+    pending = None
+    for item in items:
+        if pending is not None:
+            yield pending
+        pending = item
+    if pending is not None:
+        yield pending
+
+
 def _pow2cap(n: int) -> int:
     """Smallest power-of-two LANE multiple >= n (degree bucket capacity)."""
     c = LANE
@@ -334,7 +352,12 @@ class WaveRunner:
     * **per-chunk device partials**: count levels reduce to one int64 per
       chunk on the device, summed and read once at the end of ``run``;
       aggregate leaves to one f32 (value, live) pair per chunk, read once
-      and reduced on the host.
+      and reduced on the host;
+    * **the sharded runner's seam**: ``mining.shard.ShardedWaveRunner``
+      runs the same level bodies once per shard by overriding ``_wrap``
+      (which makes each executable), ``_sync``, the feed, the meta and emit
+      reads (``_expand_device``, ``_plan_emit``), ``_pack_total`` and
+      ``_chunk_steps``, under its own ``_exec_prefix``.
 
     ``stats['host_syncs']`` counts the reference engine's sync points: a
     level's meta read, a residual pack's total, a host-path compaction and
@@ -344,6 +367,10 @@ class WaveRunner:
     level); the registry's ``wave_items`` histogram holds each expand or
     emit call's survivor total.
     """
+
+    # prepended to every executable key: the sharded runner's
+    # ("mesh", axis, shards) keeps its executables apart from these
+    _exec_prefix: tuple = ()
 
     # ``stats`` keys, in the reference engine's order; each is a registry
     # counter the view derives from
@@ -363,7 +390,6 @@ class WaveRunner:
         self.record = record
         self.trace: list[tuple[int, np.ndarray, np.ndarray]] = []
         self.device = g.device
-        self._pin = self.device.type == "cuda"
         # host copy for the feed and capacity sizing (free when g is on the CPU)
         self.host_g = g.to("cpu")
         # chunk <= 2^15 keeps chunk sizes, and so every counter, equal to the
@@ -422,7 +448,8 @@ class WaveRunner:
     # ------------------------------------------------------------ cache
     def _executable(self, key: tuple, build: Callable) -> Callable:
         fn, fresh = self._exec_cache.get_or_build(
-            (self.chunk, self.device_compact, self.fused_level) + key, build)
+            (self.chunk, self.device_compact, self.fused_level) + self._exec_prefix + key,
+            self._wrap(key, build))
         self._exec_fresh = fresh
         self._ct["exec_misses" if fresh else "exec_hits"].inc()
         return fn
@@ -444,16 +471,27 @@ class WaveRunner:
         if op.agg is not None:
             attrs["agg"] = op.agg
         if items is not None:
-            attrs["items"] = int(items)
+            attrs["items"] = _live(items)
         if caps_sig:
             attrs["caps"] = str(tuple(caps_sig))
         if host:
             attrs["host"] = True
         with tr.span("dispatch", cat="dispatch", **attrs):
             out = fn(*args)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
         return out
+
+    def _sync(self) -> None:
+        """Wait for the runner's card (nothing to wait for on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _wrap(self, key: tuple, build: Callable) -> Callable:
+        """The build function of the executable under ``key`` (its kind first:
+        "pcount", "pagg", "pexpand", "pemit", "pchunk", "rpack", ...). Here
+        the body as it is; the sharded runner's runs the body once per
+        shard and reduces or stacks what the shards return."""
+        return build
 
     def _span(self, name: str, **attrs):
         """A span of the session's tracer; a no-op context with tracing off."""
@@ -464,30 +502,25 @@ class WaveRunner:
         """The span of one op's processing of one wave chunk (its children's
         levels nest inside)."""
         return self._span(f"L{op.level}:{op.kind}", cat="level", level=op.level,
-                          kind=op.kind, items=int(n))
+                          kind=op.kind, items=_live(n))
 
     # ------------------------------------------------------------ feed
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """Host array -> the device, from pinned memory without blocking
-        the host when the device is a card."""
+    def _upload(self, x: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
+        """Host array -> ``device`` (the runner's by default), from pinned
+        memory without blocking the host when the device is a card."""
+        device = device or self.device
         t = torch.from_numpy(np.ascontiguousarray(x))
-        if self._pin:
+        if device.type == "cuda":
             t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return t.to(device, non_blocking=True)
 
     def _edge_feed(self, symmetric: bool = True):
         """Double-buffered level-1 feed: (cap, dv0, dv1, v1_host, n).
 
         Chunk N+1 is copied to the device before chunk N is handed to the
         consumer."""
-        pending = None
-        for cap, v0, v1, n in edge_chunks(self.host_g, self.chunk, symmetric):
-            dv = self._upload(np.stack([v0, v1]))
-            if pending is not None:
-                yield pending
-            pending = (cap, dv[0], dv[1], v1, n)
-        if pending is not None:
-            yield pending
+        return _one_ahead((cap, *self._upload(np.stack([v0, v1])), v1, n)
+                          for cap, v0, v1, n in edge_chunks(self.host_g, self.chunk, symmetric))
 
     # ------------------------------------------------------------ plan parts
     @staticmethod
@@ -513,16 +546,16 @@ class WaveRunner:
             lb = torch.maximum(lb, get[w])
         return lb
 
-    def _ub_vec(self, op: LevelOp, get, n: int, nrows: int) -> torch.Tensor:
+    def _ub_vec(self, op: LevelOp, g, get, n: int, nrows: int) -> torch.Tensor:
         """Per-row effective upper bound for the kernels: min over the ``ub``
         columns (SENTINEL when unbounded), then zeroed for padding rows and
-        residual-failing items — bound 0 kills the whole row in the kernel."""
+        residual-failing items — bound 0 kills the whole row in the kernel.
+        Built on ``g``'s device (a sharded runner's shard's)."""
         if op.ub:
             ub = self._min_ub(op, get)
         else:
-            ub = torch.full((nrows,), SENTINEL, dtype=torch.int32,
-                            device=self.device)
-        ok = torch.arange(nrows, device=self.device) < n
+            ub = torch.full((nrows,), SENTINEL, dtype=torch.int32, device=g.device)
+        ok = torch.arange(nrows, device=g.device) < n
         for kind, i, j in op.residual:
             ok = ok & ((get[i] < get[j]) if kind == "lt" else (get[i] != get[j]))
         return torch.where(ok, ub, 0)
@@ -592,7 +625,7 @@ class WaveRunner:
                 # rows straight from the CSR: the references always, the
                 # base unless it is the carried survivor stream
                 base_kw, nrows = self._csr_base(op, get, carry, caps)
-                ub = self._ub_vec(op, get, n, nrows)
+                ub = self._ub_vec(op, g, get, n, nrows)
                 lb = self._max_lb(op, get) if op.lb else None
                 if fused:
                     ref = refs[0]
@@ -609,7 +642,7 @@ class WaveRunner:
             base = self._base(op, g, get, carry, caps)
             if use_xlevel:
                 # a window-only level (k = 0): the plain form, no kernel
-                ub = self._ub_vec(op, get, n, base.shape[0])
+                ub = self._ub_vec(op, g, get, n, base.shape[0])
                 lb = self._max_lb(op, get) if op.lb else None
                 counts = xlevel_count(base, None, pol, ub, lbounds=lb,
                                       excludes=self._excl_vals(op, get))
@@ -671,7 +704,7 @@ class WaveRunner:
             nrows = get[op.base].shape[0] if base is None else base.shape[0]
             scale = prefix_scale(g, get, op.agg_scale_edges) if op.agg_scale_edges \
                 else torch.ones((nrows,), dtype=torch.float32, device=g.device)
-            ub = self._ub_vec(op, get, n, nrows)
+            ub = self._ub_vec(op, g, get, n, nrows)
             lb = self._max_lb(op, get) if op.lb else None
             excl = self._excl_vals(op, get)
             if refs:
@@ -720,14 +753,14 @@ class WaveRunner:
             if fused == "inter":
                 base_kw, nrows = self._csr_base(op, get, carry, caps)
                 return xinter_compact_csr(g.indptr, g.indices, get[refs[0]], caps[refs[0]],
-                                          **base_kw, bounds=self._ub_vec(op, get, n, nrows),
+                                          **base_kw, bounds=self._ub_vec(op, g, get, n, nrows),
                                           out_cap=out_cap, out_items=out_items,
                                           lbounds=self._max_lb(op, get) if op.lb else None)
             base = self._base(op, g, get, carry, caps)
             if not (fused or use_xlevel):
                 return batch_compact_scan(base, keep_of(g, base, get, n), out_cap,
                                           out_items)
-            ub = self._ub_vec(op, get, n, base.shape[0])
+            ub = self._ub_vec(op, g, get, n, base.shape[0])
             lb = self._max_lb(op, get) if op.lb else None
             if fused == "sub":
                 return xsub_compact_csr(g.indptr, g.indices, base, get[refs[0]],
@@ -887,14 +920,19 @@ class WaveRunner:
         if self.record:
             self._record(1, self._rows_fn(cap0)(self.g, dv0), dv1, n)
 
-    @staticmethod
-    def _wave_repr(cols2: dict, out_cols, carry2, vch):
-        """Trace representative of a wave chunk (device/host comparable)."""
+    def _record_wave(self, op: LevelOp, cols2: dict, carry2, vch, m: int) -> None:
+        """Record the wave chunk an expand level hands to level
+        ``op.level + 1``: its carry, else its output columns stacked, else
+        its vertices (``record`` only: nothing is stacked otherwise)."""
+        if not self.record:
+            return
         if carry2 is not None:
-            return carry2
-        if out_cols:
-            return torch.stack([cols2[c] for c in out_cols], dim=1)
-        return vch
+            rows = carry2
+        elif op.out_cols:
+            rows = torch.stack([cols2[c] for c in op.out_cols], dim=1)
+        else:
+            rows = vch
+        self._record(op.level + 1, rows, vch, m)
 
     def _finalize(self, plan: WavePlan, parts: list):
         """Reduce one plan's partials — int64 device scalars and, for a count
@@ -952,7 +990,7 @@ class WaveRunner:
         with self._span("execute", plan=plan.pattern.name):
             for cap0, dv0, dv1, v1h, n in self._edge_feed(plan.symmetric):
                 self._ct_feed_chunks.inc()
-                with self._span("feed", cat="level", cap=cap0, items=n):
+                with self._span("feed", cat="level", cap=cap0, items=_live(n)):
                     self._record_feed(cap0, dv0, dv1, n)
                     outs += self._plan_descend(plan, 0, {0: dv0, 1: dv1},
                                                self._feed_caps(cap0, need1, v1h), None, n)
@@ -976,7 +1014,7 @@ class WaveRunner:
                 need1 = any(1 in r.op.row_refs() for r in roots)
                 for cap0, dv0, dv1, v1h, n in self._edge_feed(symmetric):
                     self._ct_feed_chunks.inc()
-                    with self._span("feed", cat="level", cap=cap0, items=n):
+                    with self._span("feed", cat="level", cap=cap0, items=_live(n)):
                         self._record_feed(cap0, dv0, dv1, n)
                         caps = self._feed_caps(cap0, need1, v1h)
                         for root in roots:
@@ -1039,8 +1077,7 @@ class WaveRunner:
             ride_out: dict = {}
             for cols2, caps2, carry2, vch, m in self._expand_chunks_host(
                     op, caps_sig, cap_base, out_cap, cols, vals, carry, n, ride_out):
-                self._record(op.level + 1, self._wave_repr(cols2, op.out_cols, carry2, vch),
-                             vch, m)
+                self._record_wave(op, cols2, carry2, vch, m)
                 for child in node.children:
                     self._forest_descend(child, cols2, caps2, carry2, m, acc)
             if "count_part" in ride_out:
@@ -1053,12 +1090,12 @@ class WaveRunner:
                                   carry, n)
         if exp is None:
             return
-        rows2, src, verts2, total, caps2, cap2 = exp
+        rows2, src, verts2, total, caps2, cap2, ride = exp
         if node.ride_plans:
             # the riding leaf's count is the expand's survivor total, read in
             # the level's meta sync: no sync of its own at the end
             for i in node.ride_plans:
-                acc[i].append(total)
+                acc[i].append(ride)
             self._ct["host_syncs"].dec(len(node.ride_plans))
         # children that kept every constraint of the shared node read the
         # compacted worklist as it is; a child whose branch deferred
@@ -1073,15 +1110,14 @@ class WaveRunner:
             pfn, refs = self._residual_pack_fn(op.level, ch.op.residual,
                                                int(src.shape[0]))
             src_b, verts_b, tot_b = pfn(tuple(cols[c] for c in refs), src, verts2, total)
-            tot_b = int(tot_b)
+            tot_b, has_b = self._pack_total(tot_b)
             self._ct["host_syncs"].inc()
-            if tot_b:
+            if has_b:
                 feeds.append(([ch], src_b, verts_b, tot_b))
         for children, s_, v_, t_ in feeds:
             for cols2, carry2, vch, m in self._expand_chunks(
                     op, b, out_cap, cap2, rows2, s_, v_, cols, t_):
-                self._record(op.level + 1, self._wave_repr(cols2, op.out_cols, carry2, vch),
-                             vch, m)
+                self._record_wave(op, cols2, carry2, vch, m)
                 for child in children:
                     self._forest_descend(child, cols2, caps2, carry2, m, acc)
 
@@ -1105,8 +1141,7 @@ class WaveRunner:
                                                   vals, carry, n)
             parts: list = []
             for cols2, caps2, carry2, vch, m in chunks:
-                self._record(op.level + 1,
-                             self._wave_repr(cols2, op.out_cols, carry2, vch), vch, m)
+                self._record_wave(op, cols2, carry2, vch, m)
                 parts += self._plan_descend(plan, oi + 1, cols2, caps2, carry2, m)
             return parts
 
@@ -1140,10 +1175,18 @@ class WaveRunner:
         return [np.stack([wave.verts if c == op.level else _host(cols[c])[ii]
                           for c in op.out_cols], axis=1)]
 
+    def _pack_total(self, tot):
+        """A residual pack's live total, read to the host -> (what chunking
+        takes, whether any item survived). The sharded runner's is the
+        per-shard total vector."""
+        tot = int(tot)
+        return tot, tot > 0
+
     def _expand_device(self, op, caps_sig, cap_base, out_cap, out_items,
                        vals, carry, n):
         """Run one expand executable + meta sync. Returns ``None`` when no
-        survivors, else (rows2, src, verts2, total, caps2, cap2)."""
+        survivors, else (rows2, src, verts2, total, caps2, cap2, ride):
+        ``ride`` is the survivor count a riding count leaf takes."""
         self._bump(op)
         fn = self._plan_expand_fn(op, caps_sig, cap_base, out_cap, out_items)
         rows2, src, verts2, meta = self._dispatch(op, fn, (self.g, vals, carry, n),
@@ -1157,7 +1200,12 @@ class WaveRunner:
             return None
         caps2 = {c: _pow2cap(max(d, 1)) for c, d in zip(op.gather_refs, dmaxs)}
         cap2 = round_capacity(maxc) if op.carry_out else 0
-        return rows2, src, verts2, total, caps2, cap2
+        return rows2, src, verts2, total, caps2, cap2, total
+
+    def _chunk_steps(self, total):
+        """(lo, live items) of each chunk of a worklist of ``total`` items."""
+        for lo in range(0, total, self.chunk):
+            yield lo, min(self.chunk, total - lo)
 
     def _expand_chunks(self, op, b, out_cap, cap2, rows2, src, verts2, cols,
                        total):
@@ -1166,8 +1214,7 @@ class WaveRunner:
         cfn = self._plan_chunk_fn(op, b, out_cap, cap2, self.chunk)
         fwd = [c for c in op.out_cols if c < op.level]
         fwdvals = tuple(cols[c] for c in fwd)
-        for lo in range(0, total, self.chunk):
-            m = min(self.chunk, total - lo)
+        for lo, m in self._chunk_steps(total):
             outs, vch, carry2 = cfn(rows2, src, verts2, fwdvals, lo, m)
             cols2 = dict(zip(fwd, outs))
             if op.level in op.out_cols:
@@ -1182,7 +1229,7 @@ class WaveRunner:
                                   vals, carry, n)
         if exp is None:
             return
-        rows2, src, verts2, total, caps2, cap2 = exp
+        rows2, src, verts2, total, caps2, cap2, _ = exp
         for cols2, carry2, vch, m in self._expand_chunks(
                 op, b, out_cap, cap2, rows2, src, verts2, cols, total):
             yield cols2, caps2, carry2, vch, m

@@ -24,8 +24,8 @@ merges the plans into a ``PlanForest``; forests are cached per batch.
 **execute** — ``engine.WaveRunner`` interprets the plan or the forest. The
 graph's CSR tensors move to the session's device once, at construction,
 and every built level executable lives in the session's
-``ExecutableCache`` (keys: ``(chunk, device_compact, fused_level, kind,
-LevelOp, capacity signature, ...)``), so a repeated query rebuilds nothing
+``ExecutableCache`` (keys: ``(mesh_signature, chunk, device_compact,
+fused_level, kind, LevelOp, capacity signature, ...)``), so a repeated query rebuilds nothing
 (``stats['rebuilds']`` counts the misses). ``device_compact=False`` takes
 the host-compaction path (``engine`` module docstring).
 
@@ -48,6 +48,17 @@ on a card. ``telemetry.write_trace(path)`` writes it as Chrome-trace JSON.
 The tracer is no part of any cache key, and with it off the engine opens
 no span and adds no synchronize and no launch.
 
+**Mesh** — ``Miner(g, mesh=S)`` (S > 1) mines data-parallel over S
+shards (``mining.shard.ShardedWaveRunner``): the first S cards of a
+``cuda`` session, S times the CPU for ``device="cpu"``, or the devices
+``mesh_devices`` lists, which may repeat a card (``("cuda:0",) * 8``:
+eight shards on one card). A mesh that wants more cards than are visible
+raises. The executable cache's keys start with ``mesh_signature(mesh)``,
+and the sharded runner's with ``("mesh", axis, S)``, so sharded and
+unsharded executables never collide. Counts are bit-identical to the
+unsharded session's; ``stats["runner"]`` adds ``psum_reductions`` and
+``shard_feed_items``.
+
 A session runs on ``cuda`` unless its config says ``device="cpu"``; with
 no card it raises rather than carrying on on the CPU. A ``Miner`` is
 single-threaded.
@@ -61,28 +72,47 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import make_mining_mesh
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.obs import LegacyStatsView, Telemetry
 
 from .engine import WaveRunner
 from .forest import PlanForest, build_forest, schedule_patterns
 from .plan import Motif, WavePlan, compile_pattern, resolve_query
+from .shard import ShardedWaveRunner
 
-__all__ = ["ExecutableCache", "Miner", "MinerConfig"]
+__all__ = ["ExecutableCache", "Miner", "MinerConfig", "mesh_signature"]
+
+
+def mesh_signature(mesh=None, device="cuda") -> tuple:
+    """The device part of every executable-cache key. Unsharded: the type of
+    the session's ``device`` and its count (the visible cards for ``cuda``,
+    1 for the CPU). Sharded: the type and number of the mesh's distinct
+    devices, then its axes ``((name, size),)``. Meshes of other axes or
+    sizes never share an executable, and the unsharded signature never
+    equals a sharded one."""
+    if mesh is None:
+        kind = torch.device(device).type
+        return (kind, torch.cuda.device_count() if kind == "cuda" else 1)
+    return (mesh.devices[0].type, len(set(mesh.devices))) + \
+        tuple((str(a), int(s)) for a, s in dict(mesh.shape).items())
 
 
 class ExecutableCache:
     """Session-lifetime cache of built level executables, with hit/miss
     stats; ``misses`` counts executables actually built — the session's
-    *rebuild* counter."""
+    *rebuild* counter. Every key starts with ``prefix`` and the
+    ``mesh_signature`` of the mesh, or of ``device`` when there is none."""
 
-    def __init__(self):
+    def __init__(self, prefix: tuple = (), mesh=None, device="cuda"):
+        self.prefix = prefix + (mesh_signature(mesh, device),)
         self._entries: dict[tuple, Callable] = {}
         self.hits = 0
         self.misses = 0
 
     def get_or_build(self, key: tuple, build: Callable):
         """Return (executable, freshly_built?) for ``key``."""
+        key = self.prefix + key
         fn = self._entries.get(key)
         if fn is None:
             fn = self._entries[key] = build()
@@ -109,6 +139,12 @@ class MinerConfig:
     device: str = "cuda"              # "cpu" runs the kernels' plain versions
     fused_level: bool = True          # general levels: one k-reference launch
     device_compact: bool = True       # False: the host compaction path
+    mesh: int | None = None           # >1: shard over that many devices
+    mesh_axis: str = "mine"           # mesh axis name (cache-key relevant)
+    feed_partition: str = "round_robin"  # edge-feed dealing (shard.py)
+    # the mesh's devices, one a shard (may repeat a card); None: the first
+    # ``mesh`` cards, or ``mesh`` times the CPU for device="cpu"
+    mesh_devices: tuple[str, ...] | None = None
     # the session's Telemetry; None = a fresh one with tracing off
     telemetry: Telemetry | None = dataclasses.field(default=None, compare=False,
                                                     repr=False)
@@ -117,16 +153,13 @@ class MinerConfig:
     def from_args(cls, args, **overrides) -> "MinerConfig":
         """A config from a parsed launcher namespace (``launch.cli`` flag
         names): ``--chunk`` -> ``chunk``, ``--trace OUT`` -> a Telemetry with
-        tracing on, ``--device`` -> ``device``. Missing attributes take the
-        field defaults; ``overrides`` win over flags. ``--shards`` > 1 raises:
-        sharded mining is not in the port yet."""
+        tracing on, ``--device`` -> ``device``, ``--shards N`` -> ``mesh``
+        (N > 1). Missing attributes take the field defaults; ``overrides``
+        win over flags."""
         shards = int(getattr(args, "shards", 0) or 0)
-        if shards > 1:
-            raise NotImplementedError(
-                f"--shards {shards}: the port mines on one device; sharded "
-                "mining is the next slice (ROADMAP.md §1.3)")
         cfg = cls(chunk=getattr(args, "chunk", None),
                   device=getattr(args, "device", None) or "cuda",
+                  mesh=shards if shards > 1 else None,
                   telemetry=Telemetry(enabled=bool(getattr(args, "trace", ""))))
         return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
@@ -147,6 +180,10 @@ class Miner:
         elif overrides:
             config = dataclasses.replace(config, **overrides)
         device = torch.device(config.device)
+        sharded = config.mesh is not None and int(config.mesh) > 1
+        if sharded and {torch.device(d).type for d in config.mesh_devices or ()} - {device.type}:
+            raise ValueError(f"mesh_devices {config.mesh_devices} are not all of the "
+                             f"session's device type {device.type!r}")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Miner runs on a CUDA device by default and "
@@ -157,14 +194,28 @@ class Miner:
         # in one registry, every span of a traced query in one tracer
         self.telemetry = config.telemetry if config.telemetry is not None else Telemetry()
         self.metrics = self.telemetry.metrics
-        # the CSR tensors move to the device once per session; queries only
-        # ship per-chunk vertex ids after this
-        self.graph = graph.to(device)
-        self.exec_cache = ExecutableCache()
-        self._runner = WaveRunner(self.graph, self.exec_cache, chunk=config.chunk,
-                                  telemetry=self.telemetry,
-                                  fused_level=config.fused_level,
-                                  device_compact=config.device_compact)
+        if sharded:
+            self.mesh = make_mining_mesh(int(config.mesh), axis=config.mesh_axis,
+                                         devices=config.mesh_devices,
+                                         device_type=device.type)
+            self.exec_cache = ExecutableCache(mesh=self.mesh)
+            self._runner = ShardedWaveRunner(
+                graph, self.mesh, self.exec_cache, axis=config.mesh_axis,
+                feed_partition=config.feed_partition, chunk=config.chunk,
+                device_compact=config.device_compact, fused_level=config.fused_level,
+                telemetry=self.telemetry)
+            # shard 0's copy of the CSR, which the runner put on each device
+            self.graph = self._runner.g[0]
+        else:
+            # the CSR tensors move to the device once per session; queries
+            # only ship per-chunk vertex ids after this
+            self.mesh = None
+            self.graph = graph.to(device)
+            self.exec_cache = ExecutableCache(device=device)
+            self._runner = WaveRunner(self.graph, self.exec_cache, chunk=config.chunk,
+                                      telemetry=self.telemetry,
+                                      fused_level=config.fused_level,
+                                      device_compact=config.device_compact)
         self._plans: dict = {}
         self._forests: dict[tuple, PlanForest] = {}
         self._stats = LegacyStatsView()
@@ -292,9 +343,10 @@ class Miner:
 
     @property
     def stats(self) -> dict:
-        """Session counters, the executable cache (``rebuilds`` = misses)
-        and the runner's dispatch/sync counters."""
+        """Session counters, the mesh's signature, the executable cache
+        (``rebuilds`` = misses) and the runner's dispatch/sync counters."""
         cache = self.exec_cache.snapshot()
-        return {**self._stats, "exec_cache": cache,
+        return {**self._stats, "mesh": mesh_signature(self.mesh, self.config.device),
+                "exec_cache": cache,
                 "rebuilds": self.exec_cache.misses,
                 "runner": dict(self._runner.stats)}

@@ -755,3 +755,57 @@ def test_traced_dispatch_synchronizes_on_card_only_when_tracing(cuda, monkeypatc
         else:
             assert syncs == []
     assert launched[True] == launched[False]
+
+
+SHARD_QUERIES = ("triangle", "4-clique", "three-chain", "tailed-triangle", "diamond", "paw")
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+def test_sharded_miner_on_one_card_equals_unsharded(cuda, shards):
+    """S shards on one card (``mesh_devices``): the unsharded card session's
+    counts, aggregates and embedding rows (as a multiset), the counters of
+    the same mesh on the CPU, and every shard's kernels launched."""
+    from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
+    g = get_dataset("email-eu-core", 0.25)
+    motifs = list(FOUR_MOTIF_SHAPES)
+    card = Miner(g, mesh=shards, mesh_devices=("cuda:0",) * shards)
+    cpu = Miner(g, device="cpu", mesh=shards)
+    one = Miner(g)
+    kernels = (K.intersect_count, K.intersect_expand, K.intersect_mark, K.intersect_multi)
+
+    def mix(m):
+        return [m.count(q) for q in SHARD_QUERIES] + [m.count_many(motifs)]
+    counts = [mix(cpu), mix(one)]
+    # the sharded card session's own launches: read just before and after it
+    n0 = [k.launches for k in kernels]
+    counts.insert(0, mix(card))
+    assert all(k.launches > n for k, n in zip(kernels, n0))
+    assert counts[0] == counts[1] == counts[2]
+    assert card.stats["runner"] == cpu.stats["runner"]
+    assert card.stats["runner"]["psum_reductions"] > 0
+
+    def rows(t):
+        return t[np.lexsort(t.T[::-1])]
+    for q in ("triangle", "diamond", "4-cycle"):
+        np.testing.assert_array_equal(rows(card.embeddings(q)), rows(one.embeddings(q)))
+    w = with_edge_values(g, edge_weights(edge_list(g), seed=0))
+    wcard = Miner(w, mesh=shards, mesh_devices=("cuda:0",) * shards)
+    for op in AGG_OPS:
+        assert wcard.aggregate("triangle", op) == Miner(w).aggregate("triangle", op)
+
+
+def test_sharded_mesh_wider_than_the_cards_raises(cuda):
+    """Without mesh_devices a mesh takes distinct cards only: one card more
+    than the host has raises, naming mesh_devices."""
+    g = get_dataset("email-eu-core", 0.25)
+    with pytest.raises(ValueError, match="mesh_devices"):
+        Miner(g, mesh=torch.cuda.device_count() + 1)
+
+
+def test_sharded_miner_over_distinct_cards_equals_one_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    g = get_dataset("email-eu-core", 0.25)
+    multi = Miner(g, mesh=min(torch.cuda.device_count(), 8))
+    assert len(set(multi.mesh.devices)) > 1
+    assert [multi.count(q) for q in SHARD_QUERIES] == [Miner(g).count(q) for q in SHARD_QUERIES]

@@ -212,6 +212,7 @@ def test_launch_mine_exhaustive_trace_and_session_stats(capsys, tmp_path):
     names = {e["name"] for e in events}
     assert {"query", "compile", "execute", "feed", "L2:count", "dispatch",
             "finalize"} <= names
-    with pytest.raises(NotImplementedError, match="shards"):
-        mine.main(["--app", "T", "--dataset", "citeseer", "--device", "cpu",
-                   "--shards", "8"])
+    # --shards 8: the same count over an 8-way mesh of the CPU
+    assert mine.main(["--app", "T", "--dataset", "citeseer", "--device", "cpu",
+                      "--shards", "8"]) == 3
+    assert "[mine] mesh: 8-way ({'mine': 8}) over cpu" in capsys.readouterr().out

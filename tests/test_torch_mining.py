@@ -273,9 +273,14 @@ def test_port_source_names_neither_jax_nor_the_jax_package():
 # copied modules and the lines each may change (original -> port)
 COPIED = {
     "graph/generators.py": {}, "mining/plan.py": {}, "mining/forest.py": {},
-    "obs/registry.py": {}, "obs/trace.py": {}, "obs/export.py": {}, "launch/cli.py": {},
+    "obs/registry.py": {}, "obs/trace.py": {}, "obs/export.py": {},
+    "launch/cli.py": {'                         "(on CPU set XLA_FLAGS="':
+                      '                         "(the first N cards; N times the CPU with "',
+                      '                         "--xla_force_host_platform_device_count=N)")':
+                      '                         "--device cpu)")'},
     "mining/exhaustive.py": {"from repro.graph.csr import CSRGraph":
                              "from repro_torch.graph.csr import CSRGraph"},
+    "distributed/fault_tolerance.py": {},
 }
 
 

@@ -110,6 +110,6 @@ def test_miner_config_from_args():
     assert cfg == MinerConfig(chunk=64, device="cpu")
     m = Miner(get_dataset("citeseer", 1.0), cfg)
     assert m.telemetry is cfg.telemetry and m.runner.telemetry is cfg.telemetry
-    with pytest.raises(NotImplementedError, match="sharded mining"):
-        MinerConfig.from_args(argparse.Namespace(shards=8))
-    assert MinerConfig.from_args(argparse.Namespace(shards=1)).chunk is None
+    assert MinerConfig.from_args(argparse.Namespace(shards=8)).mesh == 8
+    one = MinerConfig.from_args(argparse.Namespace(shards=1))
+    assert one.chunk is None and one.mesh is None
