@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases card,build,parity,csr     # kernels only
     python3 chip_smoke.py --phases card,build,emit           # the emit path only
     python3 chip_smoke.py --phases card,build,shard          # the sharded path only
+    python3 chip_smoke.py --phases card,build,serve,isa      # the service and the ISA
     python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
 Phases, each printing its own lines and its seconds; any mismatch or
@@ -94,21 +95,44 @@ exception exits non-zero:
               equal to the unsharded session's), wiki-vote's 4-motifs through
               count_many; with two or more cards, mico T and 4C over a mesh
               of distinct cards
- 14. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
+ 14. serve    repro_torch.serving.MiningService over one card session on
+              mico (weighted): three rounds of triangle, three-chain-induced,
+              4-clique, 5-clique and (diamond, paw) requests with a weighted
+              triangle sum on the values class, submitted together and
+              served by one tick each: MAIN_PATH's counts, the sum 17518.3125
+              bit for bit, fused < independent feed passes every tick, nothing
+              built after the first round, every request done; a warmed
+              session's count_many of the union against the tick's wall; a
+              burst of 15 count requests from 4 client threads (LoadGenerator)
+              against the sequential warmed session (qps, p50, p99); then
+              benchmarks/bench_serving.py's batching, cache, mixed-pool (a
+              mesh-8 bulk worker on one card) and load facts on email-eu-core
+              0.25 against baseline.json's exact serving keys
+ 15. isa      the stream ISA (core/isa.py) on CUDA streams against the same
+              ops on CPU copies: s_inter, s_sub (keys and lengths bit for
+              bit), s_inter_c, s_sub_c, s_union_count, s_vinter (mac, max,
+              min: dyadic values bit for bit, others within rtol 1e-6) and
+              s_fetch past the end, at caps 128-4096 with bounds None, random,
+              0 and SENTINEL; s_nestinter over mico's highest-degree vertex
+              (degree 2012, cap 2048), bound_by_key both ways, against the CPU
+              path and the set-semantics sum
+ 16. bitmap   keys_to_bitmap + xbitmap_count on 2048 of mico's half-edges,
               equal to the sorted-row count of the same rows; the
               merge-against-bitmap crossover sweep of
               benchmarks/bench_kernels.py, timed on the card
- 15. profile  mico's queries once more under torch.profiler, then mico's
+ 17. profile  mico's queries once more under torch.profiler, then mico's
               4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
- 16. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 18. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
-(5, 6, 7, 9, 10 or 14) and must be > 0 just after it; in 13 the counts are
-zeroed just before each mesh-8 call and read just after it, summed over
-those calls alone, so the mesh-1 runs beside them never count. The kernels
-line reports those counts (``emit_launches``: the emit path's,
-``shard_launches`` the sharded path's). --phases runs a
+(5, 6, 7, 9, 10, 15 or 16) and must be > 0 just after it; in 13 and 14 the
+counts are zeroed just before each mesh-8 call (each service call) and read
+just after it, summed over those calls alone, so the mesh-1 runs (the
+sequential sessions) beside them never count. The kernels line reports
+those counts (``emit_launches``: the emit path's, ``shard_launches`` the
+sharded path's, ``serve_launches`` the service's, ``isa_launches`` the stream
+ISA's). --phases runs a
 subset (the result lines are printed only when every phase ran); --src
 measures another checkout's repro_torch, such as a parent commit unpacked
 with git archive, with this script.
@@ -341,6 +365,39 @@ TELEMETRY_MESH8 = {
 SHARD_MICO = ("triangle", "4-clique", "5-clique", "three-chain-induced", "diamond", "paw")
 SHARD_KERNELS = ("intersect_count", "intersect_expand", "expand_items", "intersect_mark",
                  "intersect_multi", "intersect_multi_agg")
+# the serve phase: a MiningService over one card session on mico (the
+# weighted graph, so one pool serves counts and the values class), three
+# rounds of these requests submitted together and one tick, each answered
+# by MAIN_PATH's counts, beside a weighted triangle sum (WEIGHTED's); then a
+# burst of SERVE_LOAD[0] count requests from SERVE_LOAD[1] client threads
+SERVE_REQUESTS = (("triangle",), ("three-chain-induced",), ("4-clique",), ("5-clique",),
+                  ("diamond", "paw"))
+SERVE_ROUNDS = 3
+SERVE_LOAD = (15, 4)
+# benchmarks/bench_serving.py's request mix and benchmarks/baseline.json's
+# exact.serving.email-eu-core@0.25.* (the JAX package's ci_gate.py
+# measure_serving with --sharded); the ratio keys are wall ratios, printed
+SERVING_MIX = (("triangle",), ("three-chain",), ("tailed-triangle",), ("4-clique",),
+               ("4-clique", "diamond", "4-cycle", "paw", "4-path", "4-star"))
+SERVING_LABELS = ("T", "TC", "TT", "4C") + SERVING_MIX[-1]
+SERVING = {
+    "counts": {"T": 11502, "TC": 138732, "TT": 1769583, "4C": 10622, "4-clique": 10622,
+               "diamond": 151646, "4-cycle": 161630, "paw": 1035535, "4-path": 3252244,
+               "4-star": 1652486},
+    "batch_requests": 5, "feed_passes": [6, 2], "sharing_ok": True, "steady_retraces": 0,
+    "cache": {"cached_tick_executed": 0, "entries": 9, "entries_after_bump": 0,
+              "first_pass_misses": 10, "invalidations": 9, "second_pass_hits": 10},
+    "load_sharing_ok": True, "load_retraces": 0,
+    "mesh8.counts_parity": True, "mesh8.workers": ["bulk", "default"],
+    "mesh8.sharing_ok": True, "mesh8.steady_retraces": 0,
+}
+SERVING_LOAD = (24, 4)
+# the isa phase: seeded random sorted streams, (cap_a, cap_b, fill), keys over
+# [0, 4 * max cap); values dyadic on even cases, in [0.5, 2) on odd ones; the
+# ops the ISA routes through kernels, and S_NESTINTER over mico's hub
+ISA_CASES = ((128, 128, 0.9), (256, 1024, 0.5), (1024, 256, 0.7), (2048, 2048, 0.6),
+             (4096, 4096, 0.8), (4096, 128, 0.3), (512, 4096, 1.0))
+ISA_KERNELS = ("intersect_count", "intersect_mark", "compact_rows", "vinter")
 # the bitmap crossover sweep (benchmarks/bench_kernels.py): 128 rows of up
 # to 1024 keys over a key space of 8192, at these fractions of it
 CROSSOVER = (128, 1024, 8192, (0.01, 0.05, 0.1, 0.2, 0.4))
@@ -2126,14 +2183,15 @@ def _gate_mix(miner, names) -> dict:
     return res
 
 
-class _MeshLaunches:
-    """The shard phase's launches per kernel, of its mesh-8 calls alone:
-    each call run through it has every count set to 0 just before it and
-    read just after it, and the reads are summed, so no mesh-1 comparison
-    run counts."""
+class _PathLaunches:
+    """A phase's launches per kernel, of the calls run through it alone:
+    each such call has every count set to 0 just before it and read just
+    after it, and the reads are summed, so no comparison run beside them
+    (the shard phase's mesh-1 runs, the serve phase's sequential session)
+    counts."""
 
-    def __init__(self):
-        self.total = dict.fromkeys(SHARD_KERNELS, 0)
+    def __init__(self, kernels=SHARD_KERNELS):
+        self.total = dict.fromkeys(kernels, 0)
 
     def __call__(self, run):
         zero_launches()
@@ -2144,7 +2202,7 @@ class _MeshLaunches:
         return out
 
 
-def _shard_gate(g, names, card: str, on_mesh: _MeshLaunches) -> None:
+def _shard_gate(g, names, card: str, on_mesh: _PathLaunches) -> None:
     """ci_gate.py's measure_sharded mix, twice at mesh 1 and 8, then its
     measure_telemetry mix traced and untraced at mesh 8: baseline.json's
     values. The mesh-8 runs go through ``on_mesh``."""
@@ -2219,7 +2277,7 @@ def phase_shard(graphs: dict, card: str) -> dict:
     from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
     names = list(FOUR_MOTIF_SHAPES)
     want = {(n, q): w for n, _, qs in MAIN_PATH for q, w in qs}
-    on_mesh = _MeshLaunches()
+    on_mesh = _PathLaunches()
     _shard_gate(graphs["email-eu-core", 0.25], names, card, on_mesh)
     mico = graphs["mico", 1.0]
     one = Miner(mico, device=DEVICE)
@@ -2296,6 +2354,283 @@ def phase_shard(graphs: dict, card: str) -> dict:
     for k, n in launches.items():
         if n <= 0:
             raise SystemExit(f"[shard] {k} was never launched on the shard path")
+    return launches
+
+
+def _served(handles, label: str) -> list:
+    """Every handle's results; exits unless each request ended ``done`` (a
+    kernel that fails to build or launch inside a tick fails its group's
+    requests, and the service routes the cause to them)."""
+    for h in handles:
+        if h.state != "done":
+            raise SystemExit(f"[serve] {label}: request {h.id} ended {h.state}: {h.error!r}")
+    return [h.result(0) for h in handles]
+
+
+def _service(g, cache: bool = False, bulk: bool = False):
+    """A MiningService on the card: a ``default`` session, and with ``bulk``
+    a mesh-8 session over SHARD_DEVICES beside it."""
+    from repro_torch.mining import MinerConfig
+    from repro_torch.serving import MiningService, WorkerSpec
+    specs = [WorkerSpec("default", MinerConfig(device=DEVICE))]
+    if bulk:
+        specs.append(WorkerSpec("bulk", MinerConfig(device=DEVICE, mesh=SHARDS,
+                                                    mesh_devices=SHARD_DEVICES)))
+    return MiningService(g, workers=tuple(specs), cache_results=cache)
+
+
+def _serving_batching(svc, classes, track, rounds: int = 3) -> dict:
+    """bench_serving.py's batching_report: the mix as concurrent requests,
+    one tick a round; the rounds' counts equal, steady rounds build nothing."""
+    first, steady = None, 0
+    for r in range(rounds):
+        before = svc.stats["retraces"]
+        handles = [svc.submit(qs, traffic_class=tc) for qs, tc in zip(SERVING_MIX, classes)]
+        tick = track(svc.tick)
+        res = dict(zip(SERVING_LABELS, [v for vs in _served(handles, f"gate round {r}")
+                                        for v in vs]))
+        if first is None:
+            first = res
+        elif res != first:
+            raise SystemExit(f"[serve] gate round {r} counts {res} != round 0's {first}")
+        else:
+            steady += svc.stats["retraces"] - before
+    fp = tick["feed_passes"]
+    return {"counts": first, "feed_passes": [fp["independent"], fp["fused"]],
+            "sharing_ok": fp["fused"] < fp["independent"], "steady_retraces": steady,
+            "workers": sorted(svc.stats["workers"])}
+
+
+def _sequential(miner, mixes, requests: int) -> dict:
+    """A warmed session serving the request stream one request at a time:
+    qps, p50 and p99 (bench_serving.py's load_report baseline)."""
+    from repro_torch.serving import percentile
+    for qs in mixes:
+        miner.count_many(list(qs))
+    lat = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(requests):
+        t1 = time.perf_counter()
+        miner.count_many(list(mixes[i % len(mixes)]))
+        lat.append(time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    return {"qps": requests / wall, "p50_s": percentile(lat, 50), "p99_s": percentile(lat, 99)}
+
+
+def _burst(svc, mixes, requests: int, clients: int, track) -> dict:
+    """LoadGenerator's burst (qps=None) on a warmed service; exits unless
+    every request completed."""
+    from repro_torch.serving import LoadGenerator
+    res = track(LoadGenerator(svc, [(qs, "default") for qs in mixes], requests=requests,
+                              clients=clients, qps=None).run)
+    if res["completed"] != requests or res["failed"] or res["timeouts"] or res["rejected"]:
+        raise SystemExit(f"[serve] burst load did not complete: {res}")
+    return res
+
+
+def _load_text(res: dict, seq: dict) -> str:
+    return (f"service {res['qps']:.2f} qps, p50 {res['p50_s'] * 1e3:.1f} ms, p99 "
+            f"{res['p99_s'] * 1e3:.1f} ms; sequential warmed session {seq['qps']:.2f} qps, "
+            f"p50 {seq['p50_s'] * 1e3:.1f} ms, p99 {seq['p99_s'] * 1e3:.1f} ms "
+            f"(qps x{res['qps'] / seq['qps']:.3f}, p99 x{res['p99_s'] / seq['p99_s']:.3f})")
+
+
+def _serving_gate(g, card: str, track) -> None:
+    """ci_gate.py's measure_serving on email-eu-core 0.25 on the card, the
+    logic of bench_serving.py: batching, cache, the mixed pool with a mesh-8
+    bulk worker on one card, and the burst load; baseline.json's values."""
+    from repro_torch import Miner
+    default = ["default"] * len(SERVING_MIX)
+    b = _serving_batching(_service(g), default, track)
+    got = {"counts": b["counts"], "batch_requests": len(SERVING_MIX),
+           "feed_passes": b["feed_passes"], "sharing_ok": b["sharing_ok"],
+           "steady_retraces": b["steady_retraces"]}
+    svc = _service(g, cache=True)
+    [svc.submit(qs) for qs in SERVING_MIX]
+    track(svc.run_until_idle)
+    warm = svc.cache.snapshot()
+    handles = [svc.submit(qs) for qs in SERVING_MIX]
+    tick = track(svc.tick)
+    _served(handles, "gate cache pass")
+    snap = svc.cache.snapshot()
+    svc.set_graph(g)
+    after = svc.cache.snapshot()
+    got["cache"] = {"first_pass_misses": warm["misses"], "entries": snap["entries"],
+                    "second_pass_hits": snap["hits"] - warm["hits"],
+                    "cached_tick_executed": tick["executed"],
+                    "invalidations": after["invalidations"],
+                    "entries_after_bump": after["entries"]}
+    if not all(h.from_cache for h in handles):
+        raise SystemExit("[serve] gate: the second pass was not served from the cache")
+    bm = _serving_batching(_service(g, bulk=True), default[:-1] + ["bulk"], track)
+    got.update({"mesh8.counts_parity": bm["counts"] == b["counts"],
+                "mesh8.workers": bm["workers"], "mesh8.sharing_ok": bm["sharing_ok"],
+                "mesh8.steady_retraces": bm["steady_retraces"]})
+    requests, clients = SERVING_LOAD
+    seq = _sequential(Miner(g, device=DEVICE), SERVING_MIX, requests)
+    svc = _service(g)
+    [svc.submit(qs) for qs in SERVING_MIX]
+    track(svc.run_until_idle)
+    before = svc.stats["retraces"]
+    res = _burst(svc, SERVING_MIX, requests, clients, track)
+    fp = res["feed_passes"]
+    got.update(load_sharing_ok=fp["fused"] < fp["independent"],
+               load_retraces=svc.stats["retraces"] - before)
+    print(f"[serve] email-eu-core x0.25 gate ({card}): {got}", flush=True)
+    print(f"[serve] email-eu-core x0.25 burst of {requests} requests from {clients} clients "
+          f"({card}): {_load_text(res, seq)}; no speed is claimed", flush=True)
+    if got != SERVING:
+        raise SystemExit(f"[serve] MISMATCH serving keys {got} != {SERVING}")
+
+
+def phase_serve(graphs: dict, card: str) -> dict:
+    """repro_torch.serving on the card: mico's requests through one service,
+    SERVE_ROUNDS rounds of submit-then-one-tick (MAIN_PATH's counts, the
+    weighted triangle sum bit for bit, fused < independent feed passes every
+    tick, nothing built after the first); a burst of count requests against
+    a sequential warmed session; baseline.json's serving keys on
+    email-eu-core 0.25. Returns the launches per kernel of the service's
+    calls alone (the sequential sessions beside them are not counted)."""
+    from repro_torch import Miner
+    want = {q: w for n, _, qs in MAIN_PATH if n == "mico" for q, w in qs}
+    wsum = dict(((q, op), v) for q, op, v in WEIGHTED[0][2])["triangle", "sum"]
+    g = weighted(graphs["mico", 1.0])
+    track = _PathLaunches()
+    svc = _service(g)
+    expected = [[want[q] for q in qs] for qs in SERVE_REQUESTS] + [[wsum]]
+    for r in range(SERVE_ROUNDS):
+        before = svc.stats["retraces"]
+        handles = [svc.submit(qs) for qs in SERVE_REQUESTS] + \
+            [svc.submit("triangle", aggregate="sum")]
+        tick, dt = _timed(lambda: track(svc.tick))
+        got = _served(handles, f"mico round {r}")
+        built = svc.stats["retraces"] - before
+        fp = tick["feed_passes"]
+        print(f"[serve] mico x1.0 round {r}: {tick['requests']} requests in one tick "
+              f"{dt:.3f}s ({card}); feed passes {fp['independent']} independent -> "
+              f"{fp['fused']} fused; {built} executables built; results {got}", flush=True)
+        if got != expected or not fp["fused"] < fp["independent"] or (r and built):
+            raise SystemExit(f"[serve] MISMATCH mico round {r}: {got} != {expected}, "
+                             f"feed passes {fp}, {built} built")
+    union = list(dict.fromkeys(q for qs in SERVE_REQUESTS for q in qs))
+    seq_miner = Miner(g, device=DEVICE)
+    requests, clients = SERVE_LOAD
+    seq = _sequential(seq_miner, SERVE_REQUESTS, requests)
+    counts, union_dt = _timed(lambda: seq_miner.count_many(union))
+    wsum_seq, agg_dt = _timed(lambda: seq_miner.aggregate("triangle", "sum"))
+    print(f"[serve] mico x1.0 warmed session: count_many of the {len(union)}-query union "
+          f"{union_dt:.3f}s + the weighted triangle sum {agg_dt:.3f}s, against the last "
+          f"tick's {dt:.3f}s ({card})", flush=True)
+    if counts != [want[q] for q in union] or wsum_seq != wsum:
+        raise SystemExit(f"[serve] MISMATCH mico warmed session: {counts}, {wsum_seq!r}")
+    before = svc.stats["retraces"]
+    res = _burst(svc, SERVE_REQUESTS, requests, clients, track)
+    print(f"[serve] mico x1.0 burst of {requests} count requests from {clients} clients "
+          f"({card}): {_load_text(res, seq)}; feed passes {res['feed_passes']}, "
+          f"{svc.stats['retraces'] - before} built; no speed is claimed", flush=True)
+    _serving_gate(graphs["email-eu-core", 0.25], card, track)
+    st = svc.stats
+    if st["service_failed"] or st["service_timeouts"] or st["service_rejected"] \
+            or svc.stats["retraces"] != before:
+        raise SystemExit(f"[serve] service counters: {st}")
+    print(f"[serve] launches of the service's calls {track.total}", flush=True)
+    for k, n in track.total.items():
+        if n <= 0:
+            raise SystemExit(f"[serve] {k} was never launched on the serve path")
+    return track.total
+
+
+def _isa_stream(rng, cap: int, fill: float, span: int, dyadic: bool):
+    """int(cap * fill) sorted distinct keys below ``span`` from numpy's
+    ``rng``, and values beside them as ``values_like``'s: dyadic ({1/4, ..,
+    1}) or in [0.5, 2)."""
+    import numpy as np
+    keys = np.sort(rng.choice(span, int(cap * fill), replace=False)).astype(np.int32)
+    if dyadic:
+        return keys, rng.integers(1, 5, len(keys)).astype(np.float32) * 0.25
+    return keys, (rng.random(len(keys)) * 1.5 + 0.5).astype(np.float32)
+
+
+def _same_stream(label: str, got, want) -> None:
+    if not (torch.equal(got.keys.cpu(), want.keys) and int(got.length) == int(want.length)):
+        raise SystemExit(f"[isa] MISMATCH {label}: length {int(got.length)} against "
+                         f"{int(want.length)}")
+
+
+def phase_isa(graphs: dict, card: str) -> dict:
+    """The stream ISA (core/isa.py, core/nested.py) on CUDA streams against
+    the same ops on CPU copies (the plain versions): keys and lengths bit
+    for bit, counts equal, S_VINTER bit for bit on dyadic values and within
+    rtol 1e-6 on values in [0.5, 2), S_FETCH past the end SENTINEL; then
+    S_NESTINTER over mico's highest-degree vertex both ways, against the CPU
+    path and the set-semantics sum. Returns the launches per kernel."""
+    import numpy as np
+
+    from repro_torch.core import isa, make_stream, s_nestinter, to_host
+    from repro_torch.graph.csr import neighbors_stream, to_numpy
+    rng = np.random.default_rng(21)
+    zero_launches()
+    t0 = time.perf_counter()
+    checked = 0
+    for i, (cap_a, cap_b, fill) in enumerate(ISA_CASES):
+        span, dyadic = 4 * max(cap_a, cap_b), i % 2 == 0
+        (ka, va), (kb, vb) = (_isa_stream(rng, c, fill, span, dyadic) for c in (cap_a, cap_b))
+        host = make_stream(ka, va, cap_a, device="cpu"), make_stream(kb, vb, cap_b, device="cpu")
+        card_ = make_stream(ka, va, cap_a, device=DEVICE), make_stream(kb, vb, cap_b, device=DEVICE)
+        for bound in (None, int(rng.integers(0, span)), 0, SENTINEL):
+            label = f"caps ({cap_a}, {cap_b}) fill {fill} bound {bound}"
+            for op in (isa.s_inter, isa.s_sub):
+                _same_stream(f"{op.__name__} {label}", op(*card_, bound), op(*host, bound))
+            for op in (isa.s_inter_c, isa.s_sub_c):
+                got, want = op(*card_, bound), op(*host, bound)
+                if got.device.type != DEVICE or int(got) != int(want):
+                    raise SystemExit(f"[isa] MISMATCH {op.__name__} {label}: {int(got)} "
+                                     f"against {int(want)}")
+            checked += 6
+        if int(isa.s_union_count(*card_)) != int(isa.s_union_count(*host)):
+            raise SystemExit(f"[isa] MISMATCH s_union_count caps ({cap_a}, {cap_b})")
+        for op in isa.VINTER_OPS:
+            got, want = isa.s_vinter(*card_, op).cpu(), isa.s_vinter(*host, op)
+            ok = torch.equal(got, want) if dyadic else torch.allclose(got, want, rtol=1e-6,
+                                                                      atol=0)
+            if not ok:
+                raise SystemExit(f"[isa] MISMATCH s_vinter {op} caps ({cap_a}, {cap_b}) "
+                                 f"({'dyadic' if dyadic else 'in [0.5, 2)'}): {got.item()!r} "
+                                 f"against {want.item()!r}")
+        for off in (0, len(ka) - 1, len(ka), cap_a - 1, cap_a, 10 * cap_a):
+            got, want = int(isa.s_fetch(card_[0], off)), int(isa.s_fetch(host[0], off))
+            if got != want or (off >= len(ka) and got != SENTINEL):
+                raise SystemExit(f"[isa] MISMATCH s_fetch {off} caps ({cap_a}, {cap_b})")
+        checked += 4 + 6
+    torch.cuda.synchronize()
+    print(f"[isa] {len(ISA_CASES)} stream pairs, caps 128-4096, bounds None / random / 0 / "
+          f"SENTINEL: {checked} ops on the card equal to the CPU path, "
+          f"{time.perf_counter() - t0:.3f}s ({card})", flush=True)
+    mico = graphs["mico", 1.0]
+    csr = to_numpy(mico)
+    hub = int(np.argmax(csr["degrees"]))
+    g_card = mico.to(DEVICE)
+    s_card, s_host = neighbors_stream(g_card, hub), neighbors_stream(mico, hub)
+    _same_stream("neighbors_stream", s_card, s_host)
+    nv = to_host(s_host)
+    rows = {int(u): csr["indices"][csr["indptr"][u]:csr["indptr"][u + 1]] for u in nv}
+    for by_key in (False, True):
+        got, dt = _timed(lambda: s_nestinter(g_card, s_card, bound_by_key=by_key))
+        host = int(s_nestinter(mico, s_host, bound_by_key=by_key))
+        sets = sum(int(np.count_nonzero(np.intersect1d(nv, rows[u]) < (u if by_key else SENTINEL)))
+                   for u in rows)
+        print(f"[isa] mico x1.0 s_nestinter over N({hub}) (degree {len(nv)}, cap "
+              f"{s_card.capacity}), bound_by_key {by_key}: {int(got)} in {dt * 1e3:.3f} ms "
+              f"({card}); CPU path {host}, set semantics {sets}", flush=True)
+        if got.device.type != DEVICE or not int(got) == host == sets:
+            raise SystemExit(f"[isa] MISMATCH s_nestinter bound_by_key {by_key}")
+    W = wrappers()
+    launches = {k: W[k].launches for k in ISA_KERNELS}
+    print(f"[isa] launches {launches}", flush=True)
+    for k, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"[isa] {k} was never launched on the isa path")
     return launches
 
 
@@ -2438,7 +2773,7 @@ def phase_profile(graphs: dict) -> None:
 
 
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
-          "host", "emit", "fsm", "telemetry", "shard", "bitmap", "profile")
+          "host", "emit", "fsm", "telemetry", "shard", "serve", "isa", "bitmap", "profile")
 
 
 def main(argv=None) -> int:
@@ -2478,8 +2813,8 @@ def main(argv=None) -> int:
         report = timed("parity", phase_parity)
     if "csr" in run:
         timed("csr", phase_csr, report)
-    if run & {"main", "forest", "host", "emit", "fsm", "telemetry", "shard", "bitmap",
-              "profile"}:
+    if run & {"main", "forest", "host", "emit", "fsm", "telemetry", "shard", "serve", "isa",
+              "bitmap", "profile"}:
         graphs = timed("graphs", build_graphs)
     if "main" in run:
         counts, launches = timed("main", phase_main_path, graphs)
@@ -2501,6 +2836,11 @@ def main(argv=None) -> int:
     shard_launches = {}
     if "shard" in run:
         shard_launches = timed("shard", phase_shard, graphs, card)
+    serve_launches, isa_launches = {}, {}
+    if "serve" in run:
+        serve_launches = timed("serve", phase_serve, graphs, card)
+    if "isa" in run:
+        isa_launches = timed("isa", phase_isa, graphs, card)
     if "bitmap" in run:
         launches.update(timed("bitmap", phase_bitmap, graphs))
     if "profile" in run:
@@ -2514,7 +2854,9 @@ def main(argv=None) -> int:
     report["vinter"]["grid_launches"] = launches["vinter_grid"]
     rows = [{"name": name, **KERNELS[name], "launches": launches[name],
              "emit_launches": emit_launches.get(name, 0),
-             "shard_launches": shard_launches.get(name, 0), "parity": True, **report[name]}
+             "shard_launches": shard_launches.get(name, 0),
+             "serve_launches": serve_launches.get(name, 0),
+             "isa_launches": isa_launches.get(name, 0), "parity": True, **report[name]}
             for name in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

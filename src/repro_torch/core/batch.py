@@ -122,6 +122,37 @@ def batch_compact_scan(rows_a: torch.Tensor, keep: torch.Tensor, out_cap: int,
             counts.sum(dtype=torch.int32), counts.max())
 
 
+def batch_compact_items(rows: torch.Tensor, counts: torch.Tensor, out_items: int):
+    """Worklist compaction by masked sort — the oracle ``batch_compact_scan``
+    is held against, item for item.
+
+    Every valid key rows[i, j] (j < counts[i]) becomes a work item, in
+    row-major (i, j) order, the host oracle's ``np.nonzero`` order:
+
+      src    (out_items,) int32  source row index of each item (0 past total)
+      verts  (out_items,) int32  extension vertex / bound    (0 past total)
+      total  ()           int32  number of live items
+      maxc   ()           int32  max per-row survivor count (next capacity)
+
+    Valid slots keep their row-major index as sort key, dead slots get
+    SENTINEL; one sort of the B·cap keys (padded with SENTINEL to
+    ``out_items`` when that is larger) orders the items. O(B·cap·log)."""
+    B, cap = rows.shape
+    dev = rows.device
+    counts = counts.to(torch.int32)
+    valid = (torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+             < counts[:, None]).reshape(-1)
+    key = torch.where(valid, torch.arange(B * cap, dtype=torch.int32, device=dev), SENTINEL)
+    if out_items > key.shape[0]:
+        key = torch.nn.functional.pad(key, (0, out_items - key.shape[0]), value=SENTINEL)
+    order = torch.sort(key).values[:out_items]
+    total = valid.sum(dtype=torch.int32)
+    live = torch.arange(out_items, dtype=torch.int32, device=dev) < total
+    safe = torch.where(live, order, 0)
+    verts = torch.where(live, rows.reshape(-1)[safe.long()], 0).to(torch.int32)
+    return safe // cap, verts, total, counts.max()
+
+
 def batch_inter_count(rows_a, rows_b, bounds=None, lbounds=None) -> torch.Tensor:
     """counts[i] = |{k in A_i ∩ B_i : lbounds[i] < k < bounds[i]}| —
     batched S_INTER.C."""

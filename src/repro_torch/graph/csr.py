@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.stream import LANE, SENTINEL, round_capacity
+from repro_torch.core.stream import LANE, SENTINEL, Stream, round_capacity, stream_from_slice
 
 _FIELDS = ("indptr", "indices", "offsets", "degrees")
 
@@ -195,6 +195,15 @@ def csr_rows(indptr: torch.Tensor, indices: torch.Tensor, vs: torch.Tensor,
     if values is None:
         return _gather_rows(indptr, indices, vs, cap, SENTINEL)[0]
     return _gather_rows(indptr, values, vs, cap, 0.0)[0]
+
+
+def neighbors_stream(g: CSRGraph, v, cap: int | None = None) -> Stream:
+    """N(v) as a Stream (S_READ of an edge list), on the graph's device.
+    ``cap`` defaults to the graph's padded max degree; ``v`` is an int or a
+    0-d tensor on the graph's device."""
+    cap = round_capacity(cap if cap is not None else g.max_degree)
+    start = g.indptr[v]
+    return stream_from_slice(g.indices, start, g.indptr[v + 1] - start, cap)
 
 
 def padded_rows(g: CSRGraph, vs: torch.Tensor, cap: int):

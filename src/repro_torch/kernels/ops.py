@@ -121,6 +121,14 @@ def _sub_kernel_keep(a, b, bounds, lbounds):
     return (intersect_mark(a, b) == 0) & _sub_window(a, bounds, lbounds)
 
 
+def xsub(a, b, bounds=None, out_cap: int | None = None, lbounds=None):
+    """Batched bounded S_SUB -> (rows (B, out_cap), counts (B,)), ``out_cap``
+    defaulting to cap_a: the mark kernel, unbounded, gives the complement's
+    keep row, the compact-rows kernel front-packs it. On the CPU the two
+    plain versions compose to ``core.batch.batch_sub``."""
+    return compact_rows(a, _sub_kernel_keep(a, b, bounds, lbounds), out_cap or a.shape[1])
+
+
 def xsub_count(a, b, bounds=None, lbounds=None):
     """Batched bounded S_SUB.C:
     counts[i] = |{k ∈ A_i \\ B_i : lbounds[i] < k < bounds[i]}|."""

@@ -1,1 +1,1 @@
-"""Entry points: ``python -m repro_torch.launch.mine``."""
+"""Entry points: ``python -m repro_torch.launch.mine`` and ``python -m repro_torch.launch.serve --mine``."""

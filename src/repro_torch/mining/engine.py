@@ -83,7 +83,10 @@ synchronizes.
 The module-level waves (``edge_wave``, ``expand_count``, ``expand``,
 ``pair_wave``, ``wave_chunks``) are the one-shot forms the host oracle
 ``apps.triangle_list_host`` and the benches use; they run on the device of
-the graph's tensors, through the same kernel wrappers.
+the graph's tensors, through the same kernel wrappers. The runner's
+``count_edges``, ``clique``, ``three_chain_induced`` and
+``tailed_triangle`` are the JAX runner's one-shots: each compiles one plan
+and runs it.
 """
 from __future__ import annotations
 
@@ -106,7 +109,8 @@ from repro_torch.kernels.ops import (xinter, xinter_compact_csr, xinter_count,
 from repro_torch.obs import LegacyStatsView, Telemetry
 from repro_torch.values import edge_value_lookup, prefix_scale
 
-from .plan import LevelOp, WavePlan
+from .plan import (TAILED_TRIANGLE, THREE_CHAIN_INDUCED, LevelOp, WavePlan, clique_pattern,
+                   compile_pattern, pattern)
 
 
 def half_edges(g: CSRGraph) -> np.ndarray:
@@ -329,6 +333,19 @@ def choose_chunk(cap: int, budget_bytes: int = 64 << 20) -> int:
     per_row = cap * 4 * 4  # rows + neighbour rows + output + slack
     c = max(LANE, budget_bytes // max(per_row, 1))
     return int(min(DEFAULT_CHUNK * 4, (c // LANE) * LANE))
+
+
+# count_edges back-compat surface: the four (symmetric, bounded) triangle
+# stream shapes as one-level plans
+_EDGE_COUNT_PATTERNS = {
+    (True, True): pattern("edges-sym-bounded", 3, [(0, 1), (0, 2), (1, 2)],
+                          restrictions=[(1, 0), (2, 1)]),
+    (True, False): pattern("edges-sym", 3, [(0, 1), (0, 2), (1, 2)],
+                           restrictions=[(1, 0)]),
+    (False, True): pattern("edges-bounded", 3, [(0, 1), (0, 2), (1, 2)],
+                           restrictions=[(2, 1)]),
+    (False, False): pattern("edges", 3, [(0, 1), (0, 2), (1, 2)]),
+}
 
 
 class WaveRunner:
@@ -1272,3 +1289,24 @@ class WaveRunner:
             carry2 = self._upload(_pad_to(wave.rows[sl], self.chunk, SENTINEL)) \
                 if op.carry_out else None
             yield cols2, caps2, carry2, vch, m
+
+    # ----------------------------------------------- plan wrappers (compat)
+    def count_edges(self, symmetric: bool = True, bounded: bool = True) -> int:
+        """Σ over edges of |N(v0) ∩ N(v1) (∩ [0, v1))| — triangle / nested
+        triangle counting as a one-level plan."""
+        return self.run(compile_pattern(_EDGE_COUNT_PATTERNS[(symmetric, bounded)]))
+
+    def clique(self, k: int) -> int:
+        """k-clique counting, k >= 3 (compiled chain-restricted plan)."""
+        if k < 3:
+            raise ValueError("clique needs k >= 3")
+        return self.run(compile_pattern(clique_pattern(k)))
+
+    def three_chain_induced(self) -> int:
+        """Per directed edge (m, a): |{b ∈ N(m): b > a, b ∉ N(a)}|."""
+        return self.run(compile_pattern(THREE_CHAIN_INDUCED))
+
+    def tailed_triangle(self) -> int:
+        """Fig. 2b: BoundedIntersect(N0, N1, v0) per directed edge; the tail
+        level compiles away into the closed-form deg(v1) - 2 multiplier."""
+        return self.run(compile_pattern(TAILED_TRIANGLE))

@@ -1,9 +1,25 @@
 """Seeded numpy inputs for the port's intersect tests: sorted SENTINEL-padded
-int32 rows with random lengths, empty rows, and bound vectors."""
+int32 rows with random lengths, empty rows, and bound vectors; and the
+``one_torch_thread`` fixture the port's heavier test modules import."""
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.core.stream import SENTINEL
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the importing module on one torch thread, restored after it. The
+    tier-1 command runs six test processes side by side; a module of
+    chunk-wide torch ops on default threads then spends most of each op with
+    its intra-op threads waiting on one another, several times slower than
+    alone on one thread. A module imports it as
+    ``from _torch_rows import one_torch_thread``."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def T(x):

@@ -21,6 +21,7 @@ from repro_torch import Miner
 from repro_torch.graph import edge_list, edge_weights, get_dataset, with_edge_values
 
 from _torch_rows import AGG_OPS, AGG_QUERIES, sum_is_exact
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BASELINE = json.loads((Path(__file__).resolve().parents[1] / "benchmarks"
                        / "baseline.json").read_text())["exact"]

@@ -809,3 +809,72 @@ def test_sharded_miner_over_distinct_cards_equals_one_card(cuda):
     multi = Miner(g, mesh=min(torch.cuda.device_count(), 8))
     assert len(set(multi.mesh.devices)) > 1
     assert [multi.count(q) for q in SHARD_QUERIES] == [Miner(g).count(q) for q in SHARD_QUERIES]
+
+
+SERVE_MIXES = [("triangle",), ("three-chain",), ("tailed-triangle",), ("4-clique",),
+               ("paw", "diamond", "4-cycle")]
+
+
+def test_service_tick_on_card_equals_cpu(cuda):
+    """One tick of a MiningService over a card session merges the requests
+    (fused < independent feed passes), answers each with the CPU session's
+    counts, launches the count kernels, and a weighted request on the
+    values class gets the CPU session's sum bit for bit."""
+    from repro_torch.mining import MinerConfig
+    from repro_torch.serving import MiningService, WorkerSpec
+    g = get_dataset("email-eu-core", 0.25)
+    w = with_edge_values(g, edge_weights(edge_list(g), seed=0))
+    svc = MiningService(w, workers=(WorkerSpec("default", MinerConfig(device="cuda")),),
+                        cache_results=False)
+    n0 = K.intersect_count.launches
+    handles = [svc.submit(qs) for qs in SERVE_MIXES] + [svc.submit("triangle", aggregate="sum")]
+    tick = svc.tick()
+    assert K.intersect_count.launches > n0
+    assert all(h.state == "done" for h in handles)
+    assert tick["feed_passes"]["fused"] < tick["feed_passes"]["independent"]
+    cpu = Miner(w, device="cpu")
+    assert [h.result(0) for h in handles] == \
+        [cpu.count_many(list(qs)) for qs in SERVE_MIXES] + [[cpu.aggregate("triangle", "sum")]]
+    st = svc.stats
+    assert st["service_failed"] == st["service_timeouts"] == 0
+
+
+@pytest.mark.parametrize("cap_a,cap_b", [(128, 128), (256, 1024), (4096, 128), (2048, 2048)])
+def test_isa_ops_on_card_equal_cpu(cuda, cap_a, cap_b):
+    """Each Table I op on CUDA streams launches its kernel and equals the
+    same op on CPU copies: keys, lengths and counts bit for bit, S_VINTER
+    bit for bit on dyadic values."""
+    from repro_torch.core import isa, make_stream
+    rng = np.random.default_rng(cap_a * 7 + cap_b)
+    span = 4 * max(cap_a, cap_b)
+    keys = [np.sort(rng.choice(span, int(c * 0.7), replace=False)) for c in (cap_a, cap_b)]
+    vals = [rng.integers(1, 5, len(k)).astype(np.float32) * 0.25 for k in keys]
+    host = [make_stream(k, v, c, device="cpu") for k, v, c in zip(keys, vals, (cap_a, cap_b))]
+    card = [make_stream(k, v, c, device="cuda") for k, v, c in zip(keys, vals, (cap_a, cap_b))]
+    n0 = [k.launches for k in (K.intersect_count, K.intersect_mark, CP.compact_rows,
+                               SV.vinter)]
+    for bound in (None, span // 2, 0):
+        for op in (isa.s_inter, isa.s_sub):
+            got, want = op(*card, bound), op(*host, bound)
+            assert torch.equal(got.keys.cpu(), want.keys)
+            assert int(got.length) == int(want.length)
+        for op in (isa.s_inter_c, isa.s_sub_c):
+            assert int(op(*card, bound)) == int(op(*host, bound))
+    for op in isa.VINTER_OPS:
+        assert torch.equal(isa.s_vinter(*card, op).cpu(), isa.s_vinter(*host, op))
+    assert int(isa.s_fetch(card[0], cap_a)) == SENTINEL
+    assert all(k.launches > n for k, n in zip(
+        (K.intersect_count, K.intersect_mark, CP.compact_rows, SV.vinter), n0))
+
+
+def test_nestinter_on_card_equals_cpu(cuda):
+    from repro_torch.core import s_nestinter
+    from repro_torch.graph import neighbors_stream
+    g = get_dataset("email-eu-core", 0.25)
+    hub = int(g.degrees.argmax())
+    gc = g.to("cuda")
+    for by_key in (False, True):
+        n0 = K.intersect_count.launches
+        got = s_nestinter(gc, neighbors_stream(gc, hub), bound_by_key=by_key)
+        assert K.intersect_count.launches == n0 + 1 and got.device.type == "cuda"
+        assert int(got) == int(s_nestinter(g, neighbors_stream(g, hub), bound_by_key=by_key))

@@ -15,6 +15,7 @@ from repro.mining.session import Miner as JMiner
 from repro_torch import Miner
 from repro_torch.graph import build_csr, get_dataset
 from repro_torch.graph.generators import powerlaw_cluster
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 QUERIES = ("triangle", "4-clique", "diamond", "4-cycle")
 GRAPHS = [("citeseer", 1.0), ("email-eu-core", 0.25)]

@@ -35,6 +35,7 @@ from repro_torch.mining import engine
 from _torch_rows import T
 from test_torch_levelgather import COMPACT, _counters
 from test_torch_rowgather import G, JG, _case
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # the INTER-expand queries on email-eu-core 0.25: the JAX package's counts
 # (benchmarks/baseline.json)

@@ -28,6 +28,7 @@ from repro_torch.mining import plan as P
 from repro_torch.mining.forest import build_forest
 
 from test_plan import _seeded_pattern
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # the JAX package's numbers on email-eu-core 0.25 (its CPU run, backend xla)
 TM = [11502, 138732]

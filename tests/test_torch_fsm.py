@@ -25,6 +25,7 @@ from repro_torch.graph.generators import clique_planted, erdos_renyi, powerlaw_c
 from repro_torch.mining import apps, engine
 from repro_torch.mining.exhaustive import PATTERN_CHECKS, exhaustive_count
 from repro_torch.mining.fsm import fsm, random_labels, sfsm
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F = importlib.import_module("repro_torch.mining.fsm")
 JF = importlib.import_module("repro.mining.fsm")

@@ -24,6 +24,7 @@ from repro_torch.kernels import svinter as SV
 
 from _torch_rows import (AGG_OPS, T, make_agg_case, make_case, make_level_case, make_rows,
                          make_vinter_case)
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 POLS = [(1,), (0,), (1, 0), (0, 0), (1, 1, 0)]
 

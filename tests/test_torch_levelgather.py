@@ -32,6 +32,7 @@ from repro_torch.mining import engine
 
 from _torch_rows import T
 from test_torch_rowgather import G, JG, _case, _ids, _jax_stack
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 POLS = [(1,), (0,), (1, 0), (0, 0), (1, 1, 0)]
 # queries with SUB or general levels on email-eu-core 0.25 (the JAX package's

@@ -24,6 +24,7 @@ from repro_torch.graph import get_dataset
 from repro_torch.mining import baseline, engine
 from repro_torch.mining.plan import TRIANGLE, clique_pattern, compile_pattern
 from repro_torch.mining.session import MinerConfig
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 GRAPHS = [("citeseer", 1.0), ("email-eu-core", 0.25)]
@@ -281,6 +282,27 @@ COPIED = {
     "mining/exhaustive.py": {"from repro.graph.csr import CSRGraph":
                              "from repro_torch.graph.csr import CSRGraph"},
     "distributed/fault_tolerance.py": {},
+    "serving/request.py": {}, "serving/loadgen.py": {},
+    "serving/cache.py": {"from repro.obs import MetricsRegistry":
+                         "from repro_torch.obs import MetricsRegistry"},
+    "serving/pool.py": {"from repro.graph.csr import CSRGraph":
+                        "from repro_torch.graph.csr import CSRGraph",
+                        "from repro.mining.session import Miner, MinerConfig":
+                        "from repro_torch.mining.session import Miner, MinerConfig"},
+    # the service's imports, and the docstrings that name the package
+    "serving/service.py": {"(``repro.serving``) for the full contract.":
+                           "(``repro_torch.serving``) for the full contract.",
+                           "from repro.graph.csr import CSRGraph":
+                           "from repro_torch.graph.csr import CSRGraph",
+                           "from repro.mining.plan import AGG_OPS, Motif, Pattern, resolve_query":
+                           "from repro_torch.mining.plan import AGG_OPS, Motif, Pattern, "
+                           "resolve_query",
+                           "from repro.obs import Telemetry": "from repro_torch.obs import Telemetry"},
+    "serving/__init__.py": {
+        "The session layer (``repro.mining.session``) made one graph + one query":
+        "The session layer (``repro_torch.mining.session``) made one graph + one query",
+        "* **observability** — the service *consumes* ``repro.obs``: queue-depth":
+        "* **observability** — the service *consumes* ``repro_torch.obs``: queue-depth"},
 }
 
 

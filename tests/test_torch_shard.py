@@ -45,6 +45,7 @@ from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
 from repro_torch.mining.session import ExecutableCache, mesh_signature
 from repro_torch.mining.shard import FEED_PARTITIONS, ShardedWaveRunner, shard_edge_steps
 from repro_torch.obs import Telemetry
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 EXACT = json.loads((Path(__file__).resolve().parents[1] / "benchmarks"
                     / "baseline.json").read_text())["exact"]
@@ -72,18 +73,6 @@ EDGES = {"er": (erdos_renyi(60, 240, seed=3), 60),
          "wheel": (wheel(40), 40)}
 GRAPHS = {name: build_csr(e, v) for name, (e, v) in EDGES.items()}
 TINY = build_csr(erdos_renyi(6, 5, seed=2), 6)       # fewer half-edges than shards
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """A mesh-8 run on the CPU issues eight torch ops where mesh 1 issues
-    one, each over a chunk-wide block; beside other test processes, torch's
-    intra-op threads then spend most of a call waiting on one another. The
-    module runs on one thread, restored after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def sharded(g, shards: int = 8, chunk: int | None = CHUNK, **kw) -> Miner:

@@ -21,6 +21,7 @@ from repro_torch import Miner, MinerConfig
 from repro_torch.graph import get_dataset
 from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
 from repro_torch.obs import Telemetry, Tracer
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BASELINE = Path(__file__).resolve().parents[1] / "benchmarks" / "baseline.json"
 TAG = "telemetry.email-eu-core@0.25"

@@ -35,6 +35,7 @@ from repro_torch.graph.generators import erdos_renyi
 from repro_torch.values import edge_value_lookup, prefix_scale
 
 from _torch_rows import AGG_OPS, AGG_QUERIES
+from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BASELINE = json.loads((Path(__file__).resolve().parents[1] / "benchmarks"
                        / "baseline.json").read_text())["exact"]
