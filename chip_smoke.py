@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,emit           # the emit path only
     python3 chip_smoke.py --phases card,build,shard          # the sharded path only
     python3 chip_smoke.py --phases card,build,serve,isa      # the service and the ISA
+    python3 chip_smoke.py --phases card,lm,examples          # the LM and the examples
     python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
 Phases, each printing its own lines and its seconds; any mismatch or
@@ -120,10 +121,28 @@ exception exits non-zero:
               equal to the sorted-row count of the same rows; the
               merge-against-bitmap crossover sweep of
               benchmarks/bench_kernels.py, timed on the card
- 17. profile  mico's queries once more under torch.profiler, then mico's
+ 17. lm       the LM decode path (models/, configs/, no kernel of the port:
+              plain torch): each of the ten architectures' smoke config, weights
+              from the port's init with a CPU generator of seed 0, 8 greedy
+              decode steps at batch 2 on the card against the same model on the
+              CPU, with TF32 off: float32 logits within rtol 1e-4 and atol
+              1e-4·max|logit| and equal tokens, then bfloat16 (teacher-forced by
+              the float32 tokens) within 2e-2·max|logit| where every MoE route
+              is the CPU's (a token routed elsewhere must be a near tie of the
+              router, and its row is masked from that step on); qwen3-0.6b at
+              full width (28 layers, d 1024, vocab 151936) in float32 against
+              the CPU, teacher-forced, then in bfloat16 through greedy_decode at
+              batch 4, 32 tokens, max_len 128, timed (init, ms a step, tok/s,
+              peak memory); python -m repro_torch.launch.serve --arch
+              qwen3-0.6b and --arch rwkv6-3b as subprocesses, each exiting 0
+              with its tok/s line
+ 18. examples examples/quickstart_torch.py and mine_patterns_torch.py on the
+              card as subprocesses: each exits 0 and prints the JAX examples'
+              lines (EXAMPLE_LINES, timings blanked)
+ 19. profile  mico's queries once more under torch.profiler, then mico's
               4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
- 18. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 20. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
 (5, 6, 7, 9, 10, 15 or 16) and must be > 0 just after it; in 13 and 14 the
@@ -2772,8 +2791,265 @@ def phase_profile(graphs: dict) -> None:
     _profile("spmm email-core", lambda: spmsp_matmul(a, b, device=DEVICE))
 
 
+# The LM decode path (models/, configs/, launch/serve.py --arch): the card
+# against the CPU. Every config's weights come from the port's init with a
+# CPU generator of seed 0, drawn once on the CPU and copied to the card.
+LM_STEPS, LM_BATCH = 8, 2
+LM_FULL = "qwen3-0.6b"
+LM_GREEDY = (4, 32, 128)         # batch, tokens, max_len of the full-width bf16 run
+LM_LAUNCHER = (("--arch", "qwen3-0.6b"), ("--arch", "rwkv6-3b", "--batch", "2", "--tokens", "8"))
+
+# The JAX examples' lines on a CPU (python examples/quickstart.py and
+# examples/mine_patterns.py, JAX_PLATFORMS=cpu), timings blanked as
+# example_lines() blanks them (with the padding before them, whose width a
+# timing sets) and quickstart's "hottest spans" line (three span names in the
+# order of their timings) left out. The port's example counterparts must
+# print these lines on the card.
+TIMING = r" *\d+\.\d+m?s\b"
+EXAMPLE_LINES = {
+    "quickstart": [
+        "S_INTER    : [3 5 9]", "S_INTER R3 : [3 5]", "S_SUB      : [1 7]",
+        "S_VINTER   : 310.0", "S_FETCH EOS: 2147483647", "S_NESTINTER(N(0)) = 2",
+        "triangles          : 322", "triangles (nested) : 322", "3-chains (induced) : 38193",
+        "tailed triangles   : 13027", "4-cliques          : 0",
+        "4-motifs (fused)   : {'4-clique': 0, 'diamond': 167, '4-cycle': 3148, 'paw': 12359, "
+        "'4-path': 453458, '4-star': 169714}",
+        "triangle list      : (322, 3)", "retraces on repeat : 0",
+        "weighted triangles : 79.765625", "heaviest triangle  : 1.0",
+        "weighted (batched) : [79.765625, 0.0]", "retraces on repeat : 0",
+        "traced query       : <t>, 9 spans, 2 dispatches",
+        "service tick       : 2 requests merged, feed passes 2 -> 1",
+        "request results    : [322, 12359] [322, 3148]", "cached repeat      : 322 (hits=1)"],
+    "mine_patterns": [
+        "[mine] email-eu-core twin: {'V': 1000, 'E': 19316, 'avg_deg': 38.632, 'max_deg': 239}",
+        "[mine] triangle     =          29868  engine <t> | scalar <t>",
+        "[mine] 3-chain(ind) =        1014529  engine <t> | scalar <t>",
+        "[mine] tailed-tri   =        8121590  engine <t> | scalar <t>",
+        "[mine] 3-motif      = {'triangle': 29868, 'chain': 1014529}  engine <t> | scalar <t>",
+        "[mine] 4-clique     =          15853  engine <t> | scalar <t>",
+        "[mine] 5-clique     =           5788  engine <t> | scalar <t>",
+        "[mine] GRAMER-style exhaustive triangle = 29868 ( <t> — the method the paper shows "
+        "losing)",
+        "[mine] FSM (MNI support>=400): 0 frequent patterns ( <t>)",
+        "[mine] sFSM (GRAMER count-support): 284 patterns — violates downward closure (§VI-B)"],
+}
+# with more than one card the quickstart adds its mesh line
+EXAMPLE_MESH_LINE = "triangles (mesh)   : 322"
+
+
+class _Routes:
+    """Records each MoE router call of the port (``models.moe._router``):
+    the experts chosen (T, k) and each token's top-k margin (the k-th less the
+    (k+1)-th router probability), while active."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._router
+        self.idx, self.margins = [], []
+
+    def __enter__(self):
+        def router(params, x, cfg):
+            gates, idx, aux = self.orig(params, x, cfg)
+            p = torch.softmax(x.float() @ params["router"].float(), dim=-1)
+            p = p.sort(dim=-1, descending=True).values
+            self.idx.append(idx.cpu())
+            self.margins.append((p[:, cfg.top_k - 1] - p[:, cfg.top_k]).cpu())
+            return gates, idx, aux
+        self.moe._router = router
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.orig
+
+
+def _lm_decode(model, steps: int, batch: int, teacher=None):
+    """``steps`` greedy decode steps of ``batch`` streams from token 0 (or
+    teacher-forced by ``teacher`` (batch, steps + 1)), seamless against its
+    encoded zero frames: (float32 logits (batch, steps, V) on the CPU,
+    tokens (batch, steps + 1), the MoE routes)."""
+    cfg = model.cfg
+    caches, _ = model.init_cache(batch, 16)
+    if cfg.first_dense:
+        caches["dense"] = model.init_dense_cache(batch, 16)[0]
+    enc = ()
+    with torch.no_grad(), _Routes() as routes:
+        if cfg.encoder_layers:
+            enc = model._encode({"frames": torch.zeros(batch, 16, cfg.d_model,
+                                                       device=model.device)})
+        tok = torch.zeros((batch, 1), dtype=torch.long, device=model.device)
+        logits, toks = [], [tok]
+        for pos in range(steps):
+            if teacher is not None:
+                tok = teacher[:, pos:pos + 1].to(model.device)
+            lg, caches = model.decode_step(tok, pos, caches, *enc)
+            logits.append(lg.float().cpu())
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+    return torch.cat(logits, dim=1), torch.cat(toks, dim=1).cpu(), routes
+
+
+def _routed_alike(card, host, steps: int, batch: int, label: str):
+    """(batch, steps) mask of the decode positions whose every MoE route so
+    far is the CPU's: a token routed elsewhere, and its row from that step on,
+    is masked out. Each such token must be a near tie of the CPU's router (its
+    top-k margin under 1e-2), where two roundings may order two experts either
+    way; else the phase fails."""
+    alike = torch.ones((batch, steps), dtype=torch.bool)
+    per_step = len(host.idx) // steps if host.idx else 0
+    for c, (a, b) in enumerate(zip(card.idx, host.idx)):
+        for r in torch.nonzero((a.sort(1).values != b.sort(1).values).any(1)).flatten():
+            if host.margins[c][r] >= 1e-2:
+                raise SystemExit(f"[lm] MISMATCH {label}: router call {c} row {int(r)} routed "
+                                 f"elsewhere at margin {float(host.margins[c][r])}")
+            alike[int(r), c // per_step:] = False
+    return alike
+
+
+def _lm_pair(arch: str, spec, dtype, card_name: str, teacher=None) -> dict:
+    """The arch's smoke config in ``dtype`` on the card and on the CPU, same
+    weights: LM_STEPS decode steps at batch LM_BATCH each. float32: greedy on
+    both, equal tokens, logits within rtol 1e-4 and atol 1e-4·max|logit|;
+    bfloat16: teacher-forced by the float32 CPU tokens, max|Δ| ≤ 2e-2·max|logit|
+    at the positions routed alike."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(spec.smoke_config, dtype=dtype)
+    host = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = Model(cfg, device=DEVICE, generator=torch.Generator().manual_seed(0))
+    want, want_toks, host_routes = _lm_decode(host, LM_STEPS, LM_BATCH, teacher)
+    got, got_toks, card_routes = _lm_decode(card, LM_STEPS, LM_BATCH, teacher)
+    scale = float(want.abs().max())
+    alike = _routed_alike(card_routes, host_routes, LM_STEPS, LM_BATCH, f"{arch} {dtype}")
+    err = float((got - want).abs()[alike].max())
+    if dtype == torch.float32:
+        ok = (torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale) and bool(alike.all())
+              and torch.equal(got_toks, want_toks))
+    else:
+        ok = err <= 2e-2 * scale and float(alike.float().mean()) >= 0.5
+    print(f"[lm] {arch} smoke {str(dtype)[6:]}: {LM_STEPS} steps x {LM_BATCH}, max|dlogit| "
+          f"{err:.3g} of max|logit| {scale:.3g} ({err / scale:.2e}); positions routed alike "
+          f"{int(alike.sum())}/{alike.numel()}; tokens "
+          f"{'equal' if torch.equal(got_toks, want_toks) else 'teacher-forced'} "
+          f"({card_name})", flush=True)
+    if not ok:
+        raise SystemExit(f"[lm] MISMATCH {arch} {dtype}: card against CPU, max err {err}")
+    return {"tokens": want_toks, "rel_err": err / scale}
+
+
+def _lm_full(spec, card_name: str) -> None:
+    """qwen3-0.6b at full width: float32 on the card against the CPU,
+    teacher-forced by the CPU's greedy tokens, then bfloat16 on the card
+    through ``greedy_decode``, timed."""
+    import dataclasses
+
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import param_count
+    cfg32 = dataclasses.replace(spec.config, dtype=torch.float32)
+    t0 = time.perf_counter()
+    host = Model(cfg32, device="cpu", generator=torch.Generator().manual_seed(0))
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = Model(cfg32, device=DEVICE, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    print(f"[lm] {LM_FULL} full width: {param_count(card) / 1e9:.3f} B parameters, "
+          f"{cfg32.num_layers} layers, d {cfg32.d_model}, vocab {cfg32.vocab_size}; init "
+          f"{t_init:.1f}s on the CPU, {t_card:.1f}s drawn and copied to the card", flush=True)
+    want, want_toks, _ = _lm_decode(host, LM_STEPS, LM_BATCH)
+    got, _, _ = _lm_decode(card, LM_STEPS, LM_BATCH, teacher=want_toks)
+    scale = float(want.abs().max())
+    atol = 1e-4 * scale
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * atol
+    argmax_ok = torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+    err = float((got - want).abs().max())
+    print(f"[lm] {LM_FULL} float32, {LM_STEPS} steps x {LM_BATCH} teacher-forced by the CPU's "
+          f"greedy tokens: max|dlogit| {err:.3g} of max|logit| {scale:.3g}; argmax equal at "
+          f"{int(clear.sum())}/{clear.numel()} positions with a top-2 margin over "
+          f"{2 * atol:.3g}: {argmax_ok} ({card_name})", flush=True)
+    if not (torch.allclose(got, want, rtol=1e-4, atol=atol) and argmax_ok):
+        raise SystemExit(f"[lm] MISMATCH {LM_FULL} float32: max err {err}")
+    del host
+    card.cfg = spec.config       # as published: the same float32 weights, bfloat16 activations
+    B, tokens, max_len = LM_GREEDY
+    torch.cuda.reset_peak_memory_stats()
+    runs = [greedy_decode(card, B, tokens, max_len) for _ in range(2)]
+    seqs, dt = runs[-1]
+    if not (torch.equal(runs[0][0], seqs) and seqs.shape == (B, tokens + 1)
+            and int(seqs.max()) < spec.config.vocab_size):
+        raise SystemExit(f"[lm] {LM_FULL} bfloat16 greedy decode: tokens differ between runs")
+    print(f"[lm] {LM_FULL} bfloat16 greedy_decode batch {B}, {tokens} tokens, max_len "
+          f"{max_len}: first run {runs[0][1]:.3f}s, second {dt:.3f}s = {dt / tokens * 1e3:.2f} "
+          f"ms a decode step, {B * tokens / dt:.1f} tok/s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card_name})", flush=True)
+
+
+def phase_lm(card: str, src: Path) -> None:
+    """The LM decode path on the card against the CPU (TF32 off), then the
+    launcher's --arch path in subprocesses."""
+    import os
+
+    from repro_torch.configs import ARCH_NAMES, get_arch
+    env = {**os.environ, "PYTHONPATH": str(src.resolve())}
+    launchers = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *a],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  env=env) for a in LM_LAUNCHER]
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in ARCH_NAMES:
+            spec = get_arch(arch)
+            f32 = _lm_pair(arch, spec, torch.float32, card)
+            _lm_pair(arch, spec, torch.bfloat16, card, teacher=f32["tokens"])
+        _lm_full(get_arch(LM_FULL), card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        for p in launchers:
+            if p.poll() is None:
+                p.wait(timeout=300)
+    for args, p in zip(LM_LAUNCHER, launchers):
+        out, err = p.communicate()
+        line = [ln for ln in out.splitlines() if "tok/s" in ln]
+        print(f"[lm] python -m repro_torch.launch.serve {' '.join(args)}: exit {p.returncode}; "
+              f"{line[0] if line else 'no tok/s line'} ({card})", flush=True)
+        if p.returncode != 0 or not line:
+            raise SystemExit(f"[lm] launcher {args} failed:\n{err[-2000:]}")
+
+
+def example_lines(text: str) -> list:
+    import re
+    return [re.sub(TIMING, " <t>", ln) for ln in text.splitlines()
+            if ln.strip() and not ln.startswith("hottest spans")]
+
+
+def phase_examples(card: str) -> None:
+    """examples/quickstart_torch.py and mine_patterns_torch.py on the card,
+    side by side in subprocesses: each exits 0 and prints EXAMPLE_LINES."""
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / f"{name}_torch.py")],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in EXAMPLE_LINES}
+    t0 = time.perf_counter()
+    for name, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        got, want = example_lines(out), EXAMPLE_LINES[name]
+        if name == "quickstart" and torch.cuda.device_count() > 1:
+            want = want + [EXAMPLE_MESH_LINE]
+        print(f"[examples] {name}_torch.py: exit {p.returncode}, {len(got)} lines, "
+              f"{sum(a == b for a, b in zip(got, want))} equal to the JAX example's, "
+              f"{time.perf_counter() - t0:.1f}s ({card})", flush=True)
+        if p.returncode != 0 or got != want:
+            for a, b in zip(got + [""] * len(want), want + [""] * len(got)):
+                if a != b:
+                    print(f"[examples]   got {a!r}\n[examples]  want {b!r}", flush=True)
+            raise SystemExit(f"[examples] {name}_torch.py differs from the JAX example:\n"
+                             f"{err[-2000:]}")
+
+
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
-          "host", "emit", "fsm", "telemetry", "shard", "serve", "isa", "bitmap", "profile")
+          "host", "emit", "fsm", "telemetry", "shard", "serve", "isa", "bitmap", "lm", "examples",
+          "profile")
 
 
 def main(argv=None) -> int:
@@ -2843,6 +3119,10 @@ def main(argv=None) -> int:
         isa_launches = timed("isa", phase_isa, graphs, card)
     if "bitmap" in run:
         launches.update(timed("bitmap", phase_bitmap, graphs))
+    if "lm" in run:
+        timed("lm", phase_lm, card, args.src)
+    if "examples" in run:
+        timed("examples", phase_examples, card)
     if "profile" in run:
         timed("profile", phase_profile, graphs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

@@ -12,9 +12,15 @@ The counterpart of ``repro`` (the JAX package), module for module:
                ``Miner`` session, and the workloads over it (FSM, the
                exhaustive baseline, ``apps``)
   serving/     the concurrent mining service over a pool of sessions
-  distributed/ the mining mesh (a list of devices), the degree-balanced partitioner
+  distributed/ the mining mesh (a list of devices), the LM's logical ``Axes``,
+               the degree-balanced partitioner
   obs/         metrics registry behind the engine's counters, span tracer
-  launch/      ``python -m repro_torch.launch.mine`` and ``launch.serve --mine``
+  models/      the LM: one transformer skeleton for ten architectures (GQA/MLA
+               attention, MoE, Mamba, RWKV-6 blocks) in plain torch, its KV/state
+               caches and decode step, and ``convert`` for the JAX package's weights
+  configs/     the ten architectures' published and smoke configs (``get_arch``)
+  launch/      ``python -m repro_torch.launch.mine``, ``launch.serve --mine`` and
+               ``launch.serve --arch`` (greedy decoding)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 each kernel wrapper takes its plain version only for a CPU tensor.

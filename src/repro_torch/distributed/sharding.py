@@ -1,7 +1,10 @@
-"""The mining mesh: one axis over a list of torch devices.
+"""The mining mesh: one axis over a list of torch devices, and the LM's
+logical axis names.
 
 The counterpart of ``repro.distributed.sharding``'s ``make_mining_mesh``
-(the LM partition rules of that module are not ported). The JAX package's
+and ``Axes`` (the LM partition rules of that module, ``ShardingRules``,
+``logical_to_physical`` and ``mesh_context``, are not ported; the port's LM
+runs on one device, where ``constrain`` has no effect). The JAX package's
 mesh is a ``jax.sharding.Mesh`` that ``shard_map`` runs one program over;
 the port's is a plain list of devices that one host loop drives
 (``mining.shard.ShardedWaveRunner``): each shard's launches go to its own
@@ -15,6 +18,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+class Axes(tuple):
+    """Logical axes annotation of one parameter or cache leaf
+    (``Axes("embed", "heads", "head_dim")``): a tuple of names, None for an
+    axis with no logical name."""
+
+    def __new__(cls, *names):
+        return super().__new__(cls, names)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,9 @@
-"""Serving launcher: a concurrent graph-mining service (``repro_torch.serving``).
+"""Serving launcher: batched greedy decoding against the KV/state caches
+(``repro_torch.models``), or a concurrent graph-mining service
+(``repro_torch.serving``).
 
+  python -m repro_torch.launch.serve --arch rwkv6-3b --tokens 32
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
   python -m repro_torch.launch.serve --mine email-eu-core --rounds 4
   python -m repro_torch.launch.serve --mine email-eu-core --scale 0.25 \\
       --device cpu --rounds 2
@@ -8,7 +12,12 @@
   python -m repro_torch.launch.serve --mine email-eu-core --scale 0.25 \\
       --device cpu --shards 8
 
-The mining half of ``repro.launch.serve``. ``--mine`` is a thin launcher over
+The counterpart of ``repro.launch.serve``. Without ``--mine`` it decodes:
+the architecture's smoke config (``--arch``, one of ``configs.ARCH_NAMES``)
+with random weights from a seeded generator, ``--batch`` streams of
+``--tokens`` greedy tokens from token 0 against caches of ``--max-len``
+(seamless first encodes 16 zero frames), and prints the tokens a second
+and the first stream's tokens. ``--mine`` is a thin launcher over
 ``serving.MiningService``: the app mix (T/TC/TT/4C + the 4-motif batch) is
 submitted as CONCURRENT requests and each round's tick merges them into
 shared forest schedules across requests (fused feed passes < sum of the
@@ -18,21 +27,71 @@ switches to the threaded load generator and reports p50/p99/qps.
 ``--shards N`` adds a mesh-sharded worker class serving the heavy motif
 batch, mixed with the unsharded default class in one pool.
 
-Sessions run on the CUDA device unless ``--device cpu``; the session flags
-are ``launch.cli``'s, read by ``MinerConfig.from_args``. Observability
-(``repro_torch.obs``): ``--session-stats`` appends the service's
-Prometheus-style metrics snapshot; ``--trace out.json`` span-traces the
-service's ticks and writes the Chrome-trace/Perfetto JSON on exit.
-
-The JAX launcher's LLM decoding (``--arch``) is not ported yet: without
-``--mine`` this launcher exits non-zero.
+The model and the sessions run on the CUDA device unless ``--device cpu``;
+the session flags are ``launch.cli``'s, read by ``MinerConfig.from_args``.
+Observability (``repro_torch.obs``): ``--session-stats`` appends the
+service's Prometheus-style metrics snapshot; ``--trace out.json``
+span-traces the service's ticks and writes the Chrome-trace/Perfetto JSON
+on exit.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import torch
+
 from .cli import add_graph_args, add_service_args, add_session_args
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def greedy_decode(model, batch: int, tokens: int, max_len: int, enc=None):
+    """``tokens`` greedy decode steps of ``batch`` streams from token 0, on
+    caches of ``max_len`` (``enc``: the encoder's (states, positions), for an
+    encoder-decoder). Returns ((batch, tokens + 1) int64 tokens on the
+    model's device, seconds of the loop, ended by a synchronize on a card)."""
+    caches, _ = model.init_cache(batch, max_len)
+    if model.cfg.first_dense:
+        caches["dense"] = model.init_dense_cache(batch, max_len)[0]
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=model.device)
+    out = [tok]
+    _sync(model.device)
+    t0 = time.perf_counter()
+    for i in range(tokens):
+        logits, caches = model.decode_step(tok, i, caches, *(enc or ()))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+    _sync(model.device)
+    return torch.cat(out, dim=1), time.perf_counter() - t0
+
+
+def serve_lm(args) -> None:
+    """Greedy decoding of ``args.arch``'s smoke config, as the JAX launcher
+    decodes it: random weights from seed 0, ``args.batch`` x ``args.tokens``
+    tokens, caches of ``args.max_len``; seamless decodes against the encoder
+    states of 16 zero frames."""
+    from repro_torch.configs import ARCH_NAMES, get_arch
+
+    if args.arch not in ARCH_NAMES:
+        raise SystemExit(f"[serve] --arch must be one of {ARCH_NAMES}")
+    spec = get_arch(args.arch)
+    cfg = spec.smoke_config
+    model = spec.model(smoke=True, device=args.device,
+                       generator=torch.Generator().manual_seed(0))
+    enc = None
+    if cfg.encoder_layers:
+        frames = torch.zeros((args.batch, 16, cfg.d_model), device=model.device)
+        with torch.no_grad():
+            enc = model._encode({"frames": frames})
+    seqs, dt = greedy_decode(model, args.batch, args.tokens, args.max_len, enc)
+    print(f"[serve] {args.arch}: {args.batch}x{args.tokens} tokens in "
+          f"{dt:.2f}s = {args.batch * args.tokens / dt:.1f} tok/s")
+    print("[serve] sample:", seqs[0, :16].tolist())
 
 
 def serve_mining(args) -> None:
@@ -147,23 +206,26 @@ def serve_mining(args) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="",
-                    help="LLM decoding: not ported yet (the JAX package's launcher has it)")
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    help="LLM decoding: the architecture whose smoke config decodes")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=128)
     add_graph_args(ap, dataset_flag="--mine", default="",
                    help="serve the mining app mix through a MiningService "
-                        "on this dataset")
+                        "on this dataset instead of LLM decoding")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the worker sessions (cuda, or cpu for the "
-                         "kernels' plain torch versions)")
+                    help="torch device of the model or of the worker sessions (cuda, "
+                         "or cpu for plain torch)")
     ap.add_argument("--rounds", type=int, default=3,
                     help="with --mine: deterministic serving rounds")
     add_session_args(ap)
     add_service_args(ap)
     args = ap.parse_args(argv)
-    if not args.mine:
-        raise SystemExit("[serve] only --mine is ported: the --arch decode path waits "
-                         "for the LM models' port")
-    serve_mining(args)
+    if args.mine:
+        serve_mining(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

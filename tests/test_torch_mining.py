@@ -249,11 +249,24 @@ def _port_modules() -> list[str]:
                   for p in pkg.rglob("*.py"))
 
 
+PORT_EXAMPLES = [SRC.parent / "examples" / f for f in ("quickstart_torch.py",
+                                                        "mine_patterns_torch.py")]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port (the LM's models/ and configs/ too), and the
+    two example counterparts up to their argument parsing (``--help``)."""
     mods = _port_modules()
-    assert "repro_torch.kernels.intersect" in mods and len(mods) >= 20
-    code = ("import importlib, sys\n"
+    assert {"repro_torch.kernels.intersect", "repro_torch.models.transformer",
+            "repro_torch.models.convert", "repro_torch.configs.jamba_1_5_large_398b"} <= set(mods)
+    code = ("import importlib, runpy, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"for ex in {[str(p) for p in PORT_EXAMPLES]!r}:\n"
+            "    sys.argv = [ex, '--help']\n"
+            "    try:\n"
+            "        runpy.run_path(ex, run_name='__main__')\n"
+            "    except SystemExit:\n"
+            "        pass\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")
@@ -261,12 +274,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env={**os.environ, "PYTHONPATH": str(SRC)},
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    assert out.stdout.count("usage:") == 2
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_port_source_names_neither_jax_nor_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-    files = list((SRC / "repro_torch").rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    files = (list((SRC / "repro_torch").rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+             + PORT_EXAMPLES)
     for f in files:
         assert not pat.search(f.read_text()), f
 

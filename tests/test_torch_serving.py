@@ -439,7 +439,7 @@ def test_serving_baseline_keys():
 # ---------------------------------------------------------------------------
 
 
-def test_launch_serve_mine_rounds():
+def test_launch_serve_mine_rounds(capsys):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--mine", "email-eu-core",
          "--scale", "0.25", "--device", "cpu", "--rounds", "2"],
@@ -449,9 +449,12 @@ def test_launch_serve_mine_rounds():
     assert "T=11502 4C=10622" in out.stdout
     assert re.search(r"^\[serve\] round 1: .* 0 retraces$", out.stdout, re.M)
     assert "2 fused feed passes vs 6 independent" in out.stdout
-    # without --mine (the JAX launcher's LLM decoding) it refuses, no fallback
-    with pytest.raises(SystemExit, match="--arch decode path"):
-        serve.main(["--arch", "qwen3-0.6b"])
+    # without --mine it decodes (the JAX launcher's LLM decoding), as
+    # tests/test_system.py runs the JAX launcher
+    serve.main(["--arch", "rwkv6-3b", "--batch", "2", "--tokens", "8", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert re.search(r"^\[serve\] rwkv6-3b: 2x8 tokens in [\d.]+s = [\d.]+ tok/s$", out, re.M)
+    assert re.search(r"^\[serve\] sample: \[0(, \d+){8}\]$", out, re.M)
 
 
 def test_runner_one_shots_equal_jax_runner():
