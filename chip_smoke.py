@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases card,build,shard          # the sharded path only
     python3 chip_smoke.py --phases card,build,serve,isa      # the service and the ISA
     python3 chip_smoke.py --phases card,lm,examples          # the LM and the examples
+    python3 chip_smoke.py --phases card,train                # LM training
     python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
 Phases, each printing its own lines and its seconds; any mismatch or
@@ -139,10 +140,25 @@ exception exits non-zero:
  18. examples examples/quickstart_torch.py and mine_patterns_torch.py on the
               card as subprocesses: each exits 0 and prints the JAX examples'
               lines (EXAMPLE_LINES, timings blanked)
- 19. profile  mico's queries once more under torch.profiler, then mico's
+ 19. train    LM training (Model.loss, train/, launch/train.py; no kernel of
+              the port: plain torch and autograd): each smoke config, two
+              steps on one batch on the card against the CPU in float32 (TF32
+              off; loss within rtol 1e-4, gnorm within 1e-3, the second loss
+              at most the first + 0.1), then in bfloat16 for the record;
+              qwen3-0.6b at full width in float32, two steps at 2 x 32, card
+              against CPU (loss within rtol 1e-5, gnorm within 1e-4); crash
+              and restart of launch.train in subprocesses (exit 17, "restored
+              step", the uninterrupted run's losses); examples/train_100m_torch.py
+              (final loss below ln V - 1); qwen3-0.6b as published through
+              launch.train --full at 8 x 512 for 20 steps (the loss falling, ms
+              a step, tok/s, peak memory), one step's aten ops and device
+              busy share, 5 steps with 8-bit state, and one step at 4 x 2048
+              whose peak memory less params, grads and state stays below one
+              whole float32 logits tensor
+ 20. profile  mico's queries once more under torch.profiler, then mico's
               4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
- 20. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 21. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
 (5, 6, 7, 9, 10, 15 or 16) and must be > 0 just after it; in 13 and 14 the
@@ -163,12 +179,14 @@ printing no result, when torch sees no CUDA device or when the repository's
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
+import torch.utils._python_dispatch
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2799,6 +2817,17 @@ LM_FULL = "qwen3-0.6b"
 LM_GREEDY = (4, 32, 128)         # batch, tokens, max_len of the full-width bf16 run
 LM_LAUNCHER = (("--arch", "qwen3-0.6b"), ("--arch", "rwkv6-3b", "--batch", "2", "--tokens", "8"))
 
+# The LM training path (models/ Model.loss, train/, launch/train.py, the
+# training examples): weights from a CPU generator of seed 0, as in lm.
+TRAIN_STEPS = (100, 101)         # two steps on one batch, past the schedule's warmup
+TRAIN_SMOKE = (2, 16)            # batch, seq of the smoke configs' steps
+TRAIN_F32 = (2, 32)              # batch, seq of qwen3-0.6b float32, card against CPU
+TRAIN_BF16 = ("--batch", "8", "--seq", "512", "--steps", "20")   # launch.train --full
+TRAIN_8BIT_STEPS = 5             # steps at 8 x 512 with state_bits=8
+TRAIN_LONG = (4, 2048)           # one step: the chunked loss's peak memory
+TRAIN_CRASH = ("--arch", "qwen3-0.6b", "--steps", "10", "--batch", "2", "--seq", "16",
+               "--ckpt-every", "4")
+
 # The JAX examples' lines on a CPU (python examples/quickstart.py and
 # examples/mine_patterns.py, JAX_PLATFORMS=cpu), timings blanked as
 # example_lines() blanks them (with the padding before them, whose width a
@@ -3047,9 +3076,302 @@ def phase_examples(card: str) -> None:
                              f"{err[-2000:]}")
 
 
+def _train_pair(arch: str, spec, card_name: str) -> None:
+    """The arch's smoke config in float32 on the card and on the CPU, same
+    weights: two train steps (TRAIN_STEPS) on one batch (the launcher's zero
+    extras), loss within rtol 1e-4 and gnorm within rtol 1e-3 of the CPU's at
+    each step, the second loss at most the first + 0.1; then bfloat16 on the
+    card, two steps, for the record (finite, the same + 0.1 criterion)."""
+    import dataclasses
+
+    from repro_torch.launch.train import zero_extras
+    from repro_torch.models import Model
+    from repro_torch.train import OptConfig, SyntheticLMData, adamw_init, make_train_step
+    B, S = TRAIN_SMOKE
+    runs = {}
+    for label, dtype, device in (("cpu", torch.float32, "cpu"), ("card", torch.float32, DEVICE),
+                                 ("bf16", torch.bfloat16, DEVICE)):
+        cfg = dataclasses.replace(spec.smoke_config, dtype=dtype)
+        model = Model(cfg, device=device, generator=torch.Generator().manual_seed(0))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in
+                 SyntheticLMData(cfg.vocab_size, S, B).batch_at(0).items()}
+        batch.update(zero_extras(spec, cfg, B, S, device))
+        opt_cfg = OptConfig(lr=3e-3)
+        opt, step_fn = adamw_init(model.tree(), opt_cfg), make_train_step(model, opt_cfg)
+        runs[label] = []
+        for step in TRAIN_STEPS:
+            out = step_fn(opt, batch, step)
+            step_fn.apply(opt, out)
+            runs[label].append({k: float(v) for k, v in out.items()})
+    (l0, l1), (g0, g1) = ([r[k] for r in runs["card"]] for k in ("loss", "gnorm"))
+    dl = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(runs["card"], runs["cpu"]))
+    dg = max(abs(a["gnorm"] - b["gnorm"]) / b["gnorm"] for a, b in zip(runs["card"], runs["cpu"]))
+    b0, b1 = (r["loss"] for r in runs["bf16"])
+    print(f"[train] {arch} smoke float32, steps {TRAIN_STEPS} at {B} x {S}: loss {l0:.6f} -> "
+          f"{l1:.6f}, gnorm {g0:.4f}, {g1:.4f}; card against CPU: loss rel {dl:.2e}, gnorm rel "
+          f"{dg:.2e}; bfloat16 loss {b0:.4f} -> {b1:.4f} ({card_name})", flush=True)
+    ok = (dl <= 1e-4 and dg <= 1e-3 and l1 <= l0 + 0.1 and b1 <= b0 + 0.1
+          and all(math.isfinite(r[k]) for v in runs.values() for r in v for k in r))
+    if not ok:
+        raise SystemExit(f"[train] MISMATCH {arch}: {runs}")
+
+
+def _train_full_f32(spec, card_name: str) -> None:
+    """qwen3-0.6b at full width in float32, the card against the CPU, step by
+    step: two steps (TRAIN_STEPS) on one TRAIN_F32 batch, loss within rtol
+    1e-5 and gnorm within rtol 1e-4 at each step; the first step's gradients
+    leaf by leaf (relative L2), the three farthest printed."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.train import OptConfig, SyntheticLMData, adamw_init, make_train_step
+    B, S = TRAIN_F32
+    cfg = dataclasses.replace(spec.config, dtype=torch.float32)
+    opt_cfg = OptConfig(lr=3e-3)
+    t0 = time.perf_counter()
+    models, opts, fns, batches, runs = {}, {}, {}, {}, {}
+    for device in ("cpu", DEVICE):
+        models[device] = Model(cfg, device=device, generator=torch.Generator().manual_seed(0))
+        opts[device] = adamw_init(models[device].tree(), opt_cfg)
+        fns[device] = make_train_step(models[device], opt_cfg)
+        batches[device] = {k: torch.from_numpy(v).to(device) for k, v in
+                           SyntheticLMData(cfg.vocab_size, S, B).batch_at(0).items()}
+        runs[device] = []
+    worst = []
+    for i, step in enumerate(TRAIN_STEPS):
+        outs = {d: fns[d](opts[d], batches[d], step) for d in runs}
+        if i == 0:
+            for (name, a), (_, b) in zip(models["cpu"].named_parameters(),
+                                         models[DEVICE].named_parameters()):
+                ref = a.grad.double()
+                rel = float((b.grad.cpu().double() - ref).norm() / ref.norm().clamp(min=1e-30))
+                worst.append((rel, name))
+        for d in runs:
+            fns[d].apply(opts[d], outs[d])
+            runs[d].append({k: float(v) for k, v in outs[d].items()})
+    card, host = runs[DEVICE], runs["cpu"]
+    dl = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(card, host))
+    dg = [abs(a["gnorm"] - b["gnorm"]) / b["gnorm"] for a, b in zip(card, host)]
+    worst = sorted(worst, reverse=True)[:3]
+    print(f"[train] {LM_FULL} full width float32, steps {TRAIN_STEPS} at {B} x {S}: loss "
+          f"{host[0]['loss']:.6f} -> {host[1]['loss']:.6f} (CPU), {card[0]['loss']:.6f} -> "
+          f"{card[1]['loss']:.6f} (card); loss rel {dl:.2e}, gnorm rel {dg[0]:.2e}, {dg[1]:.2e}; "
+          f"first step's grads, farthest leaves (relative L2): "
+          f"{', '.join(f'{n} {r:.1e}' for r, n in worst)}; both sides "
+          f"{time.perf_counter() - t0:.1f}s ({card_name})", flush=True)
+    if not (dl <= 1e-5 and max(dg) <= 1e-4):
+        raise SystemExit(f"[train] MISMATCH {LM_FULL} float32: {runs}")
+
+
+class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the aten ops dispatched while active (backward ones included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _train_full_bf16(spec, card_name: str) -> None:
+    """qwen3-0.6b as published (bfloat16 activations, float32 params)
+    through ``launch.train --full``: TRAIN_BF16, the loss falling, ms a step
+    (median of the steps after the first), tokens a second, peak memory; one
+    step's aten ops and device busy time; TRAIN_8BIT_STEPS steps with 8-bit
+    state; one step at TRAIN_LONG whose peak less params, grads and state
+    stays below one whole (B, S, V) float32 logits tensor."""
+    import gc
+    import statistics
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import OptConfig, SyntheticLMData, adamw_init, make_train_step
+    cfg = spec.config
+    torch.cuda.reset_peak_memory_stats()
+    run = launch_train.main(["--arch", LM_FULL, "--full", *TRAIN_BF16, "--device", DEVICE])
+    model, losses = run.pop("model"), run["losses"]
+    B, S = int(TRAIN_BF16[1]), int(TRAIN_BF16[3])
+    ms = statistics.median(run["step_seconds"][1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    params = _tree_bytes(model.tree())
+    state = _tree_bytes(run.pop("opt_state"))
+    print(f"[train] {LM_FULL} full width bfloat16, launch.train --full {' '.join(TRAIN_BF16)}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}), {len(losses)} "
+          f"steps accepted; {ms:.2f} ms a step (median of steps 1-{len(losses) - 1}; step 0 "
+          f"{run['step_seconds'][0] * 1e3:.1f} ms), {B * S / ms * 1e3:.0f} tok/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB (params {params / 2**30:.2f}, grads "
+          f"{params / 2**30:.2f}, 32-bit state {state / 2**30:.2f} GiB) ({card_name})", flush=True)
+    if not (len(losses) == int(TRAIN_BF16[5]) and losses[-1] < losses[0]
+            and all(math.isfinite(x) for x in losses)):
+        raise SystemExit(f"[train] {LM_FULL} bfloat16: the loss did not fall: {losses}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def steps(bits: int, B: int, S: int, n: int, first: int = 100):
+        """n steps of a fresh ``bits`` state at (B, S) from step ``first``:
+        (losses, host seconds a step ended by a synchronize, peak bytes, state
+        bytes)."""
+        opt_cfg = OptConfig(lr=3e-4, state_bits=bits)
+        data = SyntheticLMData(cfg.vocab_size, S, B, seed=1)
+        torch.cuda.reset_peak_memory_stats()
+        opt, step_fn = adamw_init(model.tree(), opt_cfg), make_train_step(model, opt_cfg)
+        out, secs = [], []
+        for step in range(first, first + n):
+            batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch_at(step).items()}
+            m, dt = _timed(lambda: _apply_step(step_fn, opt, batch, step))
+            out.append(m)
+            secs.append(dt)
+        peak, nbytes = torch.cuda.max_memory_allocated(), _tree_bytes(opt)
+        del opt, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, secs, peak, nbytes
+
+    # one step's aten ops, and its device busy time against its wall
+    opt_cfg = OptConfig(lr=3e-4)
+    opt, step_fn = adamw_init(model.tree(), opt_cfg), make_train_step(model, opt_cfg)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             SyntheticLMData(cfg.vocab_size, S, B).batch_at(0).items()}
+    _apply_step(step_fn, opt, batch, 100)
+    with _OpCount() as ops:
+        _apply_step(step_fn, opt, batch, 101)
+    wall, busy, traced, _ = _busy(lambda: _apply_step(step_fn, opt, batch, 102))
+    print(f"[train] {LM_FULL} bfloat16 step at {B} x {S}: {ops.n} aten ops dispatched (forward, "
+          f"backward with the units' recompute, AdamW); wall {wall:.2f} ms untraced, device busy "
+          f"{busy:.2f} ms of {traced:.2f} ms traced ({busy / traced:.1%}); "
+          f"{wall / ops.n * 1e3:.1f} us of wall an op ({card_name})", flush=True)
+    del opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q, secs, peak8, state8 = steps(8, B, S, TRAIN_8BIT_STEPS)
+    ms8 = statistics.median(secs[1:]) * 1e3
+    print(f"[train] {LM_FULL} bfloat16, state_bits=8, {TRAIN_8BIT_STEPS} steps at {B} x {S}: "
+          f"loss {q[0]['loss']:.4f} -> {q[-1]['loss']:.4f}; {ms8:.2f} ms a step, "
+          f"{B * S / ms8 * 1e3:.0f} tok/s; max_memory_allocated {peak8 / 2**30:.2f} GiB, 8-bit "
+          f"state {state8 / 2**30:.2f} GiB ({card_name})", flush=True)
+    LB, LS = TRAIN_LONG
+    q, secs, peak_long, state_long = steps(32, LB, LS, 1)
+    logits = LB * LS * cfg.vocab_size * 4
+    rest = peak_long - 2 * params - state_long
+    print(f"[train] {LM_FULL} bfloat16, one step at {LB} x {LS} (loss_chunk {cfg.loss_chunk}): "
+          f"loss {q[0]['loss']:.4f}, {secs[0] * 1e3:.1f} ms; max_memory_allocated "
+          f"{peak_long / 2**30:.2f} GiB, less params, grads and state {rest / 2**30:.2f} GiB "
+          f"against {logits / 2**30:.2f} GiB for one whole ({LB}, {LS}, {cfg.vocab_size}) float32 "
+          f"logits tensor ({card_name})", flush=True)
+    if not (rest < logits and all(math.isfinite(m["loss"]) for m in q)):
+        raise SystemExit(f"[train] {LM_FULL} at {TRAIN_LONG}: peak less params, grads and state "
+                         f"{rest} bytes, not below {logits}")
+
+
+def _apply_step(step_fn, opt, batch, step) -> dict:
+    out = step_fn(opt, batch, step)
+    m = {k: float(v) for k, v in out.items()}
+    step_fn.apply(opt, out)
+    return m
+
+
+STEP_LINE = r"\[train\] step (\d+) loss=(\S+) gnorm=(\S+) lr=\S+"
+
+
+def _crash_restart(procs: dict, card_name: str) -> None:
+    """The crash run exits 17, the restart prints "restored step" and then
+    the uninterrupted run's loss and gnorm (to the printed digits: the card's
+    embedding backward adds with atomics, so the two runs may differ in the
+    last bits); the final checkpoints' largest difference is printed."""
+    import re
+
+    import numpy as np
+    out, err = {}, {}
+    for k in ("crash", "whole"):
+        out[k], err[k] = procs[k].communicate(timeout=600)
+    rc = {k: procs[k].returncode for k in ("crash", "whole")}
+    if rc["crash"] != 17 or rc["whole"] != 0:
+        raise SystemExit(f"[train] crash run exit {rc['crash']} (want 17), uninterrupted "
+                         f"{rc['whole']}:\n{err['crash'][-2000:]}{err['whole'][-2000:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run(procs["resume"], capture_output=True, text=True, timeout=600,
+                         env=procs["env"])
+    resumed = {int(s): (float(a), float(b)) for s, a, b in re.findall(STEP_LINE, res.stdout)}
+    whole = {int(s): (float(a), float(b)) for s, a, b in re.findall(STEP_LINE, out["whole"])}
+    restored = [ln.split(" from ")[0] for ln in res.stdout.splitlines()
+                if "restored step" in ln]
+    diff = max((max(abs(a - c), abs(b - d)) for s, (a, b) in resumed.items()
+                for c, d in [whole[s]]), default=float("inf"))
+    with np.load(procs["ck"] + "/step_9/arrays.npz") as x, \
+            np.load(procs["ck2"] + "/step_9/arrays.npz") as y:
+        dp = max(float(np.abs(x[k].astype(np.float64) - y[k]).max()) for k in x.files)
+    print(f"[train] crash and restart on the card (smoke, 10 steps at 2 x 16, checkpoints every "
+          f"4): crash exit 17; restart exit {res.returncode}, {restored[0] if restored else '-'}; "
+          f"steps {sorted(resumed)} against the uninterrupted run: max |dloss|, |dgnorm| "
+          f"{diff:.1e} (printed to 4 and 3 digits); final checkpoints max |d| {dp:.2e}; "
+          f"{time.perf_counter() - t0:.1f}s ({card_name})", flush=True)
+    if not (res.returncode == 0 and restored and sorted(resumed) == list(range(4, 10))
+            and diff <= 1e-3):
+        raise SystemExit(f"[train] restart differs:\n{res.stdout[-2000:]}{res.stderr[-2000:]}")
+
+
+def _example_100m(proc, t0: float, card_name: str) -> None:
+    """examples/train_100m_torch.py on the card: exit 0, its lines, and the
+    final loss below ln V - 1 ("LEARNED structure")."""
+    out, err = proc.communicate(timeout=900)
+    for ln in out.splitlines():
+        print(f"[train]   {ln}", flush=True)
+    print(f"[train] examples/train_100m_torch.py: exit {proc.returncode}, "
+          f"{time.perf_counter() - t0:.1f}s from the phase's start ({card_name})", flush=True)
+    if proc.returncode != 0 or "LEARNED structure" not in out:
+        raise SystemExit(f"[train] train_100m_torch.py did not learn:\n{err[-2000:]}")
+
+
+def phase_train(card: str, src: Path) -> None:
+    """LM training on the card: the smoke configs and qwen3-0.6b float32
+    against the CPU (TF32 off), qwen3-0.6b bfloat16 through launch.train
+    --full, crash and restart in subprocesses, and the 100M example."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import ARCH_NAMES, get_arch
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(src.resolve())}
+    tmp = tempfile.TemporaryDirectory()
+    ck, ck2 = os.path.join(tmp.name, "ck"), os.path.join(tmp.name, "ck2")
+    train = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CRASH, "--device", DEVICE]
+    procs = {
+        "crash": subprocess.Popen(train + ["--ckpt", ck, "--inject-failure", "5"], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        "whole": subprocess.Popen(train + ["--ckpt", ck2], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True),
+        "resume": train + ["--ckpt", ck], "env": env, "ck": ck, "ck2": ck2}
+    example = subprocess.Popen([sys.executable, str(ROOT / "examples" / "train_100m_torch.py")],
+                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in ARCH_NAMES:
+            _train_pair(arch, get_arch(arch), card)
+        _train_full_f32(get_arch(LM_FULL), card)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        _crash_restart(procs, card)
+        _example_100m(example, t0, card)
+        _train_full_bf16(get_arch(LM_FULL), card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        for p in (procs["crash"], procs["whole"], example):
+            if p.poll() is None:
+                p.kill()
+        tmp.cleanup()
+
+
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
           "host", "emit", "fsm", "telemetry", "shard", "serve", "isa", "bitmap", "lm", "examples",
-          "profile")
+          "train", "profile")
 
 
 def main(argv=None) -> int:
@@ -3123,6 +3445,8 @@ def main(argv=None) -> int:
         timed("lm", phase_lm, card, args.src)
     if "examples" in run:
         timed("examples", phase_examples, card)
+    if "train" in run:
+        timed("train", phase_train, card, args.src)
     if "profile" in run:
         timed("profile", phase_profile, graphs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

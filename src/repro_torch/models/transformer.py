@@ -15,6 +15,11 @@ G and scans over it; the port holds them in ``units``, an ``nn.ModuleList``,
 and loops (``models.convert`` carries a JAX parameter tree across).
 Parameters are float32 and cast to ``cfg.dtype`` at each use.
 
+Training: ``Model.loss`` is the chunked cross-entropy (the (B, S, V)
+logits never exist; each chunk is checkpointed), and ``cfg.remat`` sets
+what the backward pass recomputes of each unit and encoder layer, as the
+JAX package's ``jax.checkpoint`` policies do.
+
 Serving: attention layers hold (K, V) caches of the unrepeated KV heads
 (MLA layers the compressed c_kv and k_rope); mamba and rwkv layers hold
 O(1) recurrent state in float32. Caches are a dict of tensors shaped as
@@ -24,11 +29,15 @@ in place and returns them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.distributed.sharding import Axes
 from . import layers as L
@@ -84,7 +93,9 @@ class ModelConfig:
     blocked_threshold: int = 8192
     block_k: int = 1024
     logit_softcap: float | None = None     # gemma2 final softcap
-    loss_chunk: int = 512                  # training: chunked cross-entropy
+    loss_chunk: int = 512                  # chunked cross-entropy: the (B,S,V)
+    #                                        logits tensor is never
+    #                                        materialised (see Model.loss)
     unroll_units: bool = False             # the JAX package's roofline knob; unused here
 
     @property
@@ -207,6 +218,21 @@ class ParamTree(nn.Module):
         return out
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: keep
+    the output of a matrix product with no batch dimension (``torch.einsum``
+    contracts a weight as a ``bmm`` of batch 1), recompute everything else."""
+    if op in _DOTS or (op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
 def _check_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -269,9 +295,12 @@ class Model(nn.Module):
         # the row gather before the cast: the same values as casting the table
         return self.embed[tokens].to(self.cfg.dtype) * math.sqrt(self.cfg.d_model)
 
-    def _logits(self, x):
-        w = (self.embed.to(self.cfg.dtype).T if self.cfg.tie_embeddings
-             else self.unembed.to(self.cfg.dtype))
+    def _unembed(self):
+        return (self.embed.to(self.cfg.dtype).T if self.cfg.tie_embeddings
+                else self.unembed.to(self.cfg.dtype))
+
+    def _logits(self, x, w=None):
+        w = self._unembed() if w is None else w
         logits = torch.einsum("bsd,dv->bsv", x, w).float()
         if self.cfg.logit_softcap:
             c = self.cfg.logit_softcap
@@ -325,6 +354,18 @@ class Model(nn.Module):
     def _zero(self):
         return torch.zeros((), dtype=torch.float32, device=self.device)
 
+    def _remat(self, fn, *args):
+        """``fn(*args)`` under ``cfg.remat`` when grad is enabled (the JAX
+        package's ``_maybe_remat``): 'none' keeps every activation, 'dots'
+        keeps the outputs of the weight products and recomputes the rest in
+        the backward pass, any other value ('minimal') keeps only the inputs."""
+        if self.cfg.remat == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        if self.cfg.remat == "dots":
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=_dots_context)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
     # ---------------- forward ----------------
     def _unit_fwd(self, up, x, positions, enc_states=None, enc_pos=None):
         cfg = self.cfg
@@ -347,19 +388,22 @@ class Model(nn.Module):
             x = x + y
         return x, aux
 
+    def _enc_layer(self, unit, x, pos):
+        p = unit.tree()["l0"]
+        h = self._norm(p["norm1"], x)
+        y, _ = self._self_attn(p["attn"], h, pos, None, causal=False)
+        x = x + y
+        h = self._norm(p["norm2"], x)
+        y, _ = self._ffn(p["ffn"], h, self._zero())
+        return x + y
+
     def _encode(self, batch):
         """The encoder over ``batch["frames"]`` (B, Se, d): (states, positions)."""
         x = batch["frames"].to(self.device, self.cfg.dtype)
         B, Se, _ = x.shape
         pos = torch.arange(Se, dtype=torch.int32, device=self.device).expand(B, Se)
         for unit in self.encoder:
-            p = unit.tree()["l0"]
-            h = self._norm(p["norm1"], x)
-            y, _ = self._self_attn(p["attn"], h, pos, None, causal=False)
-            x = x + y
-            h = self._norm(p["norm2"], x)
-            y, _ = self._ffn(p["ffn"], h, self._zero())
-            x = x + y
+            x = self._remat(self._enc_layer, unit, x, pos)
         return self._norm(self.enc_norm.tree(), x), pos
 
     def _positions(self, batch, tokens):
@@ -401,9 +445,52 @@ class Model(nn.Module):
             x, a = self._dense_layer_fwd(getattr(self, f"dense{i}").tree(), x, positions)
             aux = aux + a
         for unit in self.units:
-            x, a = self._unit_fwd(unit.tree(), x, positions, enc_states, enc_pos)
+            x, a = self._remat(self._unit_call, unit, x, positions, enc_states, enc_pos)
             aux = aux + a
         return self._norm(self.final_norm.tree(), x), aux
+
+    def _unit_call(self, unit, x, positions, enc_states, enc_pos):
+        return self._unit_fwd(unit.tree(), x, positions, enc_states, enc_pos)
+
+    def _chunk_nll(self, xc, tc, w):
+        """(sum of the NLL over the chunk's valid targets (>= 0), their count).
+        The JAX package's ``logsumexp - gold``, as ``cross_entropy`` computes
+        it: its backward keeps three float32 copies of the chunk's logits
+        where logsumexp's and gather's keep five."""
+        logits = self._logits(xc, w)
+        valid = tc >= 0
+        tgt = torch.where(valid, tc, -100).long()
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
+                              ignore_index=-100, reduction="sum")
+        return nll, valid.sum()
+
+    def loss(self, batch):
+        """Chunked (fused) cross-entropy of ``batch["targets"]`` plus the MoE
+        aux loss, a float32 scalar: the logits are made and reduced one
+        sequence chunk of ``cfg.loss_chunk`` at a time (one chunk when it does
+        not divide S), each chunk checkpointed when grad is enabled, so one
+        chunk's logits are live at a time in the backward pass too and the
+        (B, S, V) tensor never exists."""
+        cfg = self.cfg
+        x, aux = self.apply_hidden(batch)
+        targets = batch["targets"]
+        S = x.shape[1]
+        C = min(cfg.loss_chunk, S)
+        if S % C != 0:
+            C = S                                   # irregular: single chunk
+        w = self._unembed()
+        tot = self._zero()
+        n = torch.zeros((), dtype=torch.int64, device=x.device)
+        for i in range(S // C):
+            args = (x[:, i * C:(i + 1) * C], targets[:, i * C:(i + 1) * C], w)
+            if torch.is_grad_enabled():
+                s, k = checkpoint(self._chunk_nll, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                s, k = self._chunk_nll(*args)
+            tot = tot + s
+            n = n + k
+        return tot / n.clamp(min=1) + aux
 
     # ---------------- serving: cache / decode ----------------
     def init_cache(self, batch: int, max_len: int):

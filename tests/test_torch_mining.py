@@ -249,16 +249,18 @@ def _port_modules() -> list[str]:
                   for p in pkg.rglob("*.py"))
 
 
-PORT_EXAMPLES = [SRC.parent / "examples" / f for f in ("quickstart_torch.py",
-                                                        "mine_patterns_torch.py")]
+PORT_EXAMPLES = [SRC.parent / "examples" / f for f in (
+    "quickstart_torch.py", "mine_patterns_torch.py", "train_100m_torch.py",
+    "fault_tolerance_demo_torch.py")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (the LM's models/ and configs/ too), and the
-    two example counterparts up to their argument parsing (``--help``)."""
+    """Every module of the port (the LM's models/, configs/ and train/ too),
+    and the example counterparts up to their argument parsing (``--help``)."""
     mods = _port_modules()
     assert {"repro_torch.kernels.intersect", "repro_torch.models.transformer",
-            "repro_torch.models.convert", "repro_torch.configs.jamba_1_5_large_398b"} <= set(mods)
+            "repro_torch.models.convert", "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.train.checkpoint", "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, runpy, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"for ex in {[str(p) for p in PORT_EXAMPLES]!r}:\n"
@@ -274,7 +276,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env={**os.environ, "PYTHONPATH": str(SRC)},
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("usage:") == 2
+    assert out.stdout.count("usage:") == len(PORT_EXAMPLES)
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
@@ -297,6 +299,17 @@ COPIED = {
     "mining/exhaustive.py": {"from repro.graph.csr import CSRGraph":
                              "from repro_torch.graph.csr import CSRGraph"},
     "distributed/fault_tolerance.py": {},
+    # numpy only but for the dry run's stand-ins: meta tensors for ShapeDtypeStructs
+    "train/data.py": {
+        "import jax": "import torch",
+        "import jax.numpy as jnp": "",
+        '    """ShapeDtypeStruct stand-ins for the dry-run (no allocation)."""':
+        '    """``meta`` tensor stand-ins for the dry-run (no allocation)."""',
+        '        "tokens": jax.ShapeDtypeStruct((global_batch, seq_len), jnp.int32),':
+        '        "tokens": torch.empty((global_batch, seq_len), dtype=torch.int32, device="meta"),',
+        '        "targets": jax.ShapeDtypeStruct((global_batch, seq_len), jnp.int32),':
+        '        "targets": torch.empty((global_batch, seq_len), dtype=torch.int32, '
+        'device="meta"),'},
     "serving/request.py": {}, "serving/loadgen.py": {},
     "serving/cache.py": {"from repro.obs import MetricsRegistry":
                          "from repro_torch.obs import MetricsRegistry"},
