@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases card,build,serve,isa      # the service and the ISA
     python3 chip_smoke.py --phases card,lm,examples          # the LM and the examples
     python3 chip_smoke.py --phases card,train                # LM training
+    python3 chip_smoke.py --phases card,dist                 # sharding, dry run, roofline
     python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
 Phases, each printing its own lines and its seconds; any mismatch or
@@ -155,10 +156,24 @@ exception exits non-zero:
               busy share, 5 steps with 8-bit state, and one step at 4 x 2048
               whose peak memory less params, grads and state stays below one
               whole float32 logits tensor
- 20. profile  mico's queries once more under torch.profiler, then mico's
+ 20. dist     the LM partition rules, the sharded train step, the dry run and
+              the roofline (no kernel of the port), each in a subprocess:
+              launch.dryrun's qwen3-0.6b train_4k cell on the single-pod mesh
+              (256 fake ranks, fake cuda tensors, the step data parallel over
+              'data' and tensor parallel over 'model': status ok, an all-reduce,
+              argument bytes of the JAX layout equal to the port's per-unit
+              shard bytes, HW.hbm_bytes within the card's memory); the
+              sharded step on a one-card NCCL (1, 1) mesh against TrainStep
+              (qwen3-0.6b and deepseek-v2-lite-16b smoke, float32, TF32 off,
+              3 steps, loss and gnorm within rtol 1e-5); compressed_mean on
+              that world bit for bit equal to the same call over a CPU gloo
+              group; the roofline of one qwen3-0.6b bfloat16 8 x 512 step on
+              the card beside the train phase's ms a step and the MFU (printed,
+              not gated)
+ 21. profile  mico's queries once more under torch.profiler, then mico's
               4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
- 21. lines    the kernels JSON line, then the final {"ok": true, ...} line
+ 22. lines    the kernels JSON line, then the final {"ok": true, ...} line
 
 Every kernel's launch counter is zeroed just before the path that runs it
 (5, 6, 7, 9, 10, 15 or 16) and must be > 0 just after it; in 13 and 14 the
@@ -3198,6 +3213,7 @@ def _train_full_bf16(spec, card_name: str) -> None:
     model, losses = run.pop("model"), run["losses"]
     B, S = int(TRAIN_BF16[1]), int(TRAIN_BF16[3])
     ms = statistics.median(run["step_seconds"][1:]) * 1e3
+    TRAIN_MS[(B, S)] = ms
     peak = torch.cuda.max_memory_allocated()
     params = _tree_bytes(model.tree())
     state = _tree_bytes(run.pop("opt_state"))
@@ -3369,9 +3385,185 @@ def phase_train(card: str, src: Path) -> None:
         tmp.cleanup()
 
 
+# The LM partition rules, the sharded train step, the dry run and the
+# roofline (distributed/sharding.py, compression.py, launch/mesh.py,
+# launch/dryrun.py, roofline/), each check in a subprocess of its own so that
+# a fake or NCCL default process group never meets the other phases.
+TRAIN_MS: dict = {}              # the train phase's ms a step, by (batch, seq)
+DIST_ARCHS = ("qwen3-0.6b", "deepseek-v2-lite-16b")
+DIST_STEPS = 3
+DIST_ROOF = (8, 512)             # batch, seq of the roofline's qwen3-0.6b bfloat16 step
+
+DIST_DRYRUN = r"""
+import json, sys, tempfile, time
+import torch
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.roofline.analysis import H100
+t0 = time.perf_counter()
+with tempfile.TemporaryDirectory() as d:
+    r = run_cell("qwen3-0.6b", "train_4k", False, d, device="cuda")
+print(json.dumps({"record": r, "seconds": time.perf_counter() - t0,
+                  "hbm": H100.hbm_bytes,
+                  "total_memory": torch.cuda.get_device_properties(0).total_memory}))
+"""
+
+DIST_CARD = r"""
+import dataclasses, json, socket, sys, time
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_arch
+from repro_torch.distributed.compression import compressed_mean
+from repro_torch.launch.mesh import device_mesh
+from repro_torch.models.transformer import Model
+from repro_torch.roofline.analysis import H100, CostCounter, model_flops_6nd, roofline_report
+from repro_torch.train.data import SyntheticLMData
+from repro_torch.train.optimizer import OptConfig, adamw_init
+from repro_torch.train.train_step import ShardedTrainStep, TrainStep
+
+archs, steps, (RB, RS) = json.loads(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+with socket.socket() as s:                       # a free local port for the rendezvous
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+mesh = device_mesh((1, 1), ("data", "model"), "cuda")
+out = {"steps": {}}
+for arch in archs:
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.smoke_config, dtype=torch.float32)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4, seed=0)
+    runs = []
+    for sharded in (False, True):
+        model = Model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        oc = OptConfig(lr=3e-3)
+        if sharded:
+            step = ShardedTrainStep(model, mesh, opt_cfg=oc, total_steps=steps)
+            opt = step.init_state()
+        else:
+            step, opt = TrainStep(model, oc, steps), adamw_init(model.tree(), oc)
+        got = []
+        for i in range(steps):
+            b = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+            m = step(opt, b, i)
+            got.append([float(m["loss"]), float(m["gnorm"])])
+            step.apply(opt, m)
+        runs.append(got)
+    out["steps"][arch] = runs
+# compressed_mean on the card's world against the same call on a CPU gloo group
+x = torch.randn(4096, generator=torch.Generator().manual_seed(3))
+e = torch.randn(4096, generator=torch.Generator().manual_seed(4)) * 1e-3
+gloo = dist.new_group(backend="gloo")
+card = [t.cpu() for t in compressed_mean(x.cuda(), None, e.cuda())]
+host = compressed_mean(x, gloo, e)
+out["compressed"] = [bool(torch.equal(a, b)) for a, b in zip(card, host)]
+dist.destroy_process_group()
+# the roofline of one qwen3-0.6b bfloat16 step on one card (no process group)
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+spec = get_arch("qwen3-0.6b")
+model = Model(spec.config, device="cuda", generator=torch.Generator().manual_seed(0))
+oc = OptConfig(lr=3e-4)
+step, opt = TrainStep(model, oc), adamw_init(model.tree(), oc)
+b = {k: torch.from_numpy(v).cuda()
+     for k, v in SyntheticLMData(spec.config.vocab_size, RS, RB).batch_at(0).items()}
+step.apply(opt, step(opt, b, 100))
+torch.cuda.synchronize()
+with CostCounter() as c:
+    step.apply(opt, step(opt, b, 101))
+    torch.cuda.synchronize()
+n = sum(p.numel() for p in model.parameters())
+roof = roofline_report(c.flops, c.bytes, {}, 1, H100, model_flops=model_flops_6nd(n, RB * RS))
+out["roofline"] = {"flops": c.flops, "bytes": c.bytes, "ops": c.ops, "params": n, **roof}
+print(json.dumps(out))
+"""
+
+
+def _dist_run(script: str, args: list, env: dict):
+    return subprocess.Popen([sys.executable, "-c", script, *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _dist_result(proc, label: str, timeout: int = 600) -> dict:
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise SystemExit(f"[dist] {label}: exit {proc.returncode}\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_dist(card: str, src: Path) -> None:
+    """(a) launch.dryrun's qwen3-0.6b train_4k cell on the single-pod mesh
+    (a fake world of 256 ranks, fake cuda tensors, full width): status ok, an
+    all-reduce among its collectives, the JAX layout's argument bytes equal to
+    the port's own per-unit shard bytes, HW.hbm_bytes within the card's
+    memory; (b) the sharded step on a real one-card NCCL world ((1, 1) mesh,
+    TF32 off): DIST_STEPS steps of each DIST_ARCHS smoke config in float32,
+    loss and gnorm within rtol 1e-5 of the one-device TrainStep on the card;
+    (c) compressed_mean on that world bit for bit equal to the same call on
+    CPU tensors over a gloo group; (d) the roofline of one qwen3-0.6b
+    bfloat16 DIST_ROOF step on the card (CostCounter's counted FLOPs and
+    bytes, no collectives), printed beside the train phase's measured ms a
+    step and the MFU (6·N·tokens / (step s x peak)), not gated."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(src.resolve())}
+    t0 = time.perf_counter()
+    dry = _dist_run(DIST_DRYRUN, [], env)
+    crd = _dist_run(DIST_CARD, [json.dumps(DIST_ARCHS), str(DIST_STEPS), json.dumps(DIST_ROOF)],
+                    env)
+    try:
+        res = _dist_result(crd, "the card's world")
+        d = _dist_result(dry, "dry run")
+    finally:
+        for p in (dry, crd):
+            if p.poll() is None:
+                p.kill()
+    for arch, (one, sharded) in res["steps"].items():
+        dl = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(sharded, one))
+        dg = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(sharded, one))
+        print(f"[dist] (b) {arch} smoke float32, {DIST_STEPS} steps at 4 x 16 on a one-card NCCL "
+              f"(1, 1) mesh: ShardedTrainStep against TrainStep, loss rel {dl:.2e}, gnorm rel "
+              f"{dg:.2e}; losses {[round(a[0], 6) for a in sharded]} ({card})", flush=True)
+        if not (dl <= 1e-5 and dg <= 1e-5):
+            raise SystemExit(f"[dist] {arch}: the sharded step differs from TrainStep: {res}")
+    print(f"[dist] (c) compressed_mean on the card's world against a CPU gloo group: mean, "
+          f"residual bit for bit {res['compressed']} ({card})", flush=True)
+    if res["compressed"] != [True, True]:
+        raise SystemExit("[dist] compressed_mean on the card differs from its CPU value")
+    r = d["record"]
+    if r["status"] != "ok":
+        raise SystemExit(f"[dist] dry run of qwen3-0.6b train_4k: {r.get('error')}")
+    m = r["scan_measure"]
+    mem, coll = m["memory"], m["collectives"]
+    print(f"[dist] (a) launch.dryrun qwen3-0.6b train_4k single pod ({r['chips']} fake ranks, "
+          f"fake cuda tensors): {m['ops']} local aten ops traced in {m['compile_s']:.1f} s "
+          f"({d['seconds']:.1f} s with start-up); per device: {m['cost']['flops']:.4e} FLOP, "
+          f"{m['cost']['bytes']:.4e} bytes unfused, collectives {coll}; argument "
+          f"{mem['argument_bytes']} bytes (per-unit {mem['argument_bytes_port']}), temp "
+          f"{mem['temp_bytes'] / 1e9:.2f} GB, peak {mem['peak_bytes'] / 1e9:.2f} GB, fits "
+          f"{r['fits_hbm']}; dominant {r['roofline']['dominant']} (H100 data sheet constants: "
+          f"estimates, not measurements); HW.hbm_bytes {d['hbm']:.0f} against the card's "
+          f"{d['total_memory']} ({card})", flush=True)
+    if not ("all-reduce" in coll and mem["argument_bytes"] == mem["argument_bytes_port"]
+            and d["hbm"] <= d["total_memory"]):
+        raise SystemExit(f"[dist] dry-run record fails its checks: {r}")
+    rf = res["roofline"]
+    B, S = DIST_ROOF
+    ms = TRAIN_MS.get((B, S))
+    mfu = (f"{rf['model_flops'] / (ms / 1e3 * HW_BF16_FLOPS):.2%}" if ms else
+           "not measured (the train phase did not run)")
+    print(f"[dist] (d) roofline of one {LM_FULL} bfloat16 {B} x {S} step on one card: "
+          f"{rf['ops']} aten ops, {rf['flops']:.4e} FLOP, {rf['bytes']:.4e} bytes unfused; "
+          f"compute {rf['compute_s'] * 1e3:.2f} ms, memory {rf['memory_s'] * 1e3:.2f} ms, bound "
+          f"{rf['bound_step_s'] * 1e3:.2f} ms ({rf['dominant']}); the train phase's step "
+          f"{f'{ms:.2f} ms' if ms else 'not measured'}; MFU (6·N·tokens {rf['model_flops']:.4e} "
+          f"over step x {HW_BF16_FLOPS:.4g}) {mfu} ({card})", flush=True)
+    print(f"[dist] {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+HW_BF16_FLOPS = 989.4e12         # H100 SXM bf16 dense, NVIDIA data sheet (roofline.HW)
+
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
           "host", "emit", "fsm", "telemetry", "shard", "serve", "isa", "bitmap", "lm", "examples",
-          "train", "profile")
+          "train", "dist", "profile")
 
 
 def main(argv=None) -> int:
@@ -3447,6 +3639,8 @@ def main(argv=None) -> int:
         timed("examples", phase_examples, card)
     if "train" in run:
         timed("train", phase_train, card, args.src)
+    if "dist" in run:
+        timed("dist", phase_dist, card, args.src)
     if "profile" in run:
         timed("profile", phase_profile, graphs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

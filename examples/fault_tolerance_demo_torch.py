@@ -1,16 +1,18 @@
 """Scenario, on the PyTorch/CUDA port: fault tolerance end-to-end — crash
 mid-run, restart, verify the continuation; then restore the same checkpoint
-onto another device (the one-host form of the elastic path).
+onto another device, and onto a sharded mesh (the elastic path).
 
   PYTHONPATH=src python examples/fault_tolerance_demo_torch.py                # on the card
   PYTHONPATH=src python examples/fault_tolerance_demo_torch.py --device cpu
 
 The counterpart of ``examples/fault_tolerance_demo.py``: the same two
 launcher runs (``repro_torch.launch.train``, a crash after step 6, then a
-restart from the same --ckpt). Its elastic step restores the run's last
-checkpoint onto the CPU and holds it leaf for leaf against the checkpoint's
-arrays; the JAX example's restore onto an 8-device sharded mesh waits for
-the LM partition rules (ROADMAP §1.4.2).
+restart from the same --ckpt). Its elastic steps restore the run's last
+checkpoint onto the CPU, held leaf for leaf against the checkpoint's
+arrays, and, as the JAX example does, onto a (4, 2) ('data', 'model') mesh:
+in a subprocess on an 8-rank fake process group, each leaf a DTensor under
+the LM partition rules, rank 0's blocks of their shardings' shapes and
+equal to their slices of the checkpoint.
 """
 import argparse
 import os
@@ -75,6 +77,37 @@ with tempfile.TemporaryDirectory() as d:
     assert all(t.device == torch.device("cpu") for t in tree_leaves([params, opt]))
     print(f"[ft] elastic restore onto cpu at step {man['step']}: {len(man['keys'])} leaves "
           "equal to the checkpoint's, OK")
-    print("[ft] elastic restore onto an 8-device sharded mesh: waits for the LM "
-          "partition rules (ROADMAP §1.4.2)")
+
+    print("[ft] elastic restore onto a different mesh (8 fake devices) ...")
+    script = (
+        "import torch\n"
+        "from torch.distributed.tensor import distribute_tensor\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.launch.dryrun import fake_world\n"
+        "from repro_torch.launch.mesh import device_mesh\n"
+        "from repro_torch.models.transformer import Model\n"
+        "from repro_torch.train.checkpoint import CheckpointManager\n"
+        "from repro_torch.train.optimizer import OptConfig, tree_leaves\n"
+        "from repro_torch.train.train_step import ShardedTrainStep\n"
+        "fake_world(8)\n"
+        "mesh = device_mesh((4, 2), ('data', 'model'), 'cpu')\n"
+        "model = Model(get_arch('qwen3-0.6b').smoke_config, device='cpu')\n"
+        "step = ShardedTrainStep(model, mesh, opt_cfg=OptConfig())\n"
+        "opt = step.init_state()\n"
+        f"cm = CheckpointManager({ck!r})\n"
+        "whole, _, man = cm.restore(None, model.tree(), opt, device='cpu')\n"
+        "params, _, _ = cm.restore(None, model.tree(), opt, mesh=mesh,\n"
+        "                          param_shardings=step.param_shardings,\n"
+        "                          opt_shardings=step.opt_shardings)\n"
+        "for p, w, sh in zip(tree_leaves(params), tree_leaves(whole),\n"
+        "                    tree_leaves(step.param_shardings)):\n"
+        "    assert tuple(p.to_local().shape) == sh.shard_shape(tuple(w.shape))\n"
+        "    want = distribute_tensor(w, mesh, sh.placements, src_data_rank=None)\n"
+        "    assert torch.equal(p.to_local(), want.to_local())\n"
+        "shape = dict(zip(mesh.mesh_dim_names, mesh.shape))\n"
+        "print('[ft] elastic restore onto', shape, 'at step', man['step'], 'OK')\n")
+    r3 = subprocess.run([sys.executable, "-c", script], env=ENV, cwd=ROOT,
+                        capture_output=True, text=True)
+    assert r3.returncode == 0, r3.stderr[-1000:]
+    print("   " + r3.stdout.strip().splitlines()[-1])
 print("[ft] all fault-tolerance paths verified")

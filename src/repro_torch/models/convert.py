@@ -106,6 +106,8 @@ def _grouped(tree) -> dict:
 
 
 def _numpy(t) -> np.ndarray:
+    if hasattr(t, "full_tensor"):          # a DTensor: its whole value (a collective)
+        t = t.full_tensor()
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
@@ -113,7 +115,8 @@ def jax_layout(tree) -> dict:
     """A port tree as the JAX tree's flat leaves: {key: numpy array} in
     ``jax.tree_util.tree_flatten_with_path`` order, keys joined by "/", the
     units of ``units``/``encoder`` stacked on a leading G axis (8-bit scales
-    concatenated along axis 0)."""
+    concatenated along axis 0). A DTensor leaf is gathered whole: every rank
+    of its mesh calls this."""
     out = {}
     for key, (stacked, leaves) in _grouped(tree).items():
         arrs = [_numpy(t) for t in leaves]

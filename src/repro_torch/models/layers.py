@@ -3,9 +3,11 @@
 The counterpart of ``repro.models.layers``, function for function. Every
 block has ``<block>_init(gen, ...) -> (params, axes)`` and
 ``<block>_apply(params, x, ...)``: ``params`` is a nested dict of float32
-tensors, ``axes`` mirrors it with ``Axes`` leaves (logical names, which the
-port keeps for the parameter tree's shape; it runs on one device, so
-nothing is sharded by them).
+tensors, ``axes`` mirrors it with ``Axes`` leaves (the logical names that
+``distributed.sharding`` resolves to placements on a mesh). ``constrain``
+stands where the JAX package constrains an activation's sharding: it
+returns ``x`` itself with no mesh context, and redistributes a DTensor
+under one.
 
 Params are stored in float32 and cast to the activations' dtype at each
 use; scores, softmax and norms run in float32 as the JAX package runs them,
@@ -24,7 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Axes
+from repro_torch.distributed.sharding import Axes, constrain
 
 META = torch.device("meta")
 
@@ -226,6 +228,7 @@ def attention(q, k, v, pos_q, pos_k, cfg: AttnConfig, causal: bool = True):
     B, Sq, H, hd = q.shape
     Hk = k.shape[2]
     qg = q.reshape(B, Sq, Hk, H // Hk, hd)
+    qg = constrain(qg, "batch", "seq", "kv_heads", "heads", "head_dim")
     if k.shape[1] > cfg.blocked_threshold:
         out = _sdpa_blocked(qg, k, v, pos_q, pos_k, causal, cfg.window,
                             cfg.softcap, cfg.block_k)
@@ -350,4 +353,5 @@ def mlp_apply(params, x, act: str = "silu"):
         h = (F.silu(g) if act == "silu" else gelu(g)) * up
     else:
         h = gelu(up) if act == "gelu" else F.silu(up)
+    h = constrain(h, "batch", "seq", "d_ff")
     return torch.einsum("bsf,fd->bsd", h, params["w_down"].to(x.dtype))

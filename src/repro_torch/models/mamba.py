@@ -15,7 +15,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Axes
+from repro_torch.distributed.sharding import Axes, constrain
 from .layers import ParamBuilder
 
 
@@ -114,6 +114,7 @@ def mamba_apply(params, u, cfg: MambaConfig):
     y = torch.cat(ys, dim=1)[:, :S]
     y = (y + x.float() * params["D"]).to(u.dtype)
     y = y * F.silu(z)
+    y = constrain(y, "batch", "seq", "d_ff")
     return torch.einsum("bsd,de->bse", y, params["out_proj"].to(u.dtype)), h
 
 

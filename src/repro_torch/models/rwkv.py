@@ -19,7 +19,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Axes
+from repro_torch.distributed.sharding import Axes, constrain
 from .layers import ParamBuilder
 
 
@@ -103,6 +103,7 @@ def rwkv_apply(params, x, cfg: RWKVConfig, chunked: bool = True):
     else:
         y, state = _wkv_sequential(r, k, v, w, bonus)
     y = _ln_x(params, y.reshape(B, S, d), H, hs).to(x.dtype) * g
+    y = constrain(y, "batch", "seq", "heads")
     return torch.einsum("bsd,de->bse", y, params["w_o"].to(x.dtype)), state
 
 
@@ -133,7 +134,8 @@ def _wkv_chunked(r, k, v, w, bonus, Q):
 
     def prep(t, value=0.0):
         t = F.pad(t.float(), (0, 0, 0, 0, 0, pad), value=value)
-        return t.reshape(B, nq, Q, H, hs).permute(1, 0, 3, 2, 4).reshape(nq, B * H, Q, hs)
+        t = t.reshape(B, nq, Q, H, hs).permute(1, 0, 3, 2, 4).reshape(nq, B * H, Q, hs)
+        return constrain(t, None, "batch", None, None)
 
     rq, kq, vq = prep(r), prep(k), prep(v)
     wq = prep(w, 1.0)      # pad decay with 1: phantom steps don't touch the state
@@ -159,6 +161,7 @@ def _wkv_chunked(r, k, v, w, bonus, Q):
         total = cw[:, -1:]                                 # (BH,1,hs)
         k_carry = kc * torch.exp(total - cw)
         Sm = torch.exp(total[:, 0])[:, :, None] * Sm + torch.einsum("bqk,bqv->bkv", k_carry, vc)
+        Sm = constrain(Sm, "batch", None, None)
     y = torch.stack(outs).reshape(nq, B, H, Q, hs).permute(1, 0, 3, 2, 4)
     y = y.reshape(B, nq * Q, H * hs)[:, :S]
     return y, Sm.reshape(B, H, hs, hs)

@@ -15,6 +15,14 @@ G and scans over it; the port holds them in ``units``, an ``nn.ModuleList``,
 and loops (``models.convert`` carries a JAX parameter tree across).
 Parameters are float32 and cast to ``cfg.dtype`` at each use.
 
+Sharding: ``constrain`` stands at the JAX package's 19 activation
+constraints (a no-op with no mesh context). The sharded train step
+(``train.train_step.ShardedTrainStep``) keeps the parameters as DTensors
+and sets ``Model.gather``: every read of a parameter goes through it
+(``_t``, ``_tree_of``), so a unit's parameters are gathered whole inside its
+checkpointed call and again in its recompute, one unit at a time; under
+``current_dp()`` the loss's sums and counts are the whole batch's.
+
 Training: ``Model.loss`` is the chunked cross-entropy (the (B, S, V)
 logits never exist; each chunk is checkpointed), and ``cfg.remat`` sets
 what the backward pass recomputes of each unit and encoder layer, as the
@@ -39,7 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import Axes
+from repro_torch.distributed.sharding import TPParams, Axes, constrain, current_dp, current_tp
 from . import layers as L
 from .layers import META, AttnConfig, MLAConfig, ParamBuilder, apply_rope
 from .mamba import MambaConfig, mamba_apply, mamba_decode, mamba_init
@@ -200,6 +208,56 @@ def _map_tree(fn, tree):
     return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def _tp_splits(block: dict, tp) -> bool:
+    """Whether a block of DTensor parameters runs tensor parallel under
+    ``tp``: its heads (attention), its experts or their d_ff (MoE) or its
+    d_ff (MLP) split over 'model'. RWKV's channel mix does not."""
+    if "maa_k" in block:
+        return False
+    if "wq" in block:
+        return tp.splits(block["wq"], 1) and tp.splits(block["wo"], 0)
+    if "router" in block:
+        return tp.splits(block["w_up"], 0) or tp.splits(block["w_up"], 2)
+    return tp.splits(block["w_up"], 1) and tp.splits(block["w_down"], 0)
+
+
+def _gather_tree(tree: dict, gather, tp) -> dict:
+    """``tree``'s parameters through ``gather``; under ``tp``, each
+    attention, cross-attention and FFN block that splits over 'model' as
+    ``TPParams`` (the MoE router whole: routing stays outside the split)."""
+    out = {}
+    for k, v in tree.items():
+        if not isinstance(v, dict):
+            out[k] = gather(v)
+        elif tp is not None and k in ("attn", "cross", "ffn") and _tp_splits(v, tp):
+            out[k] = TPParams(_map_tree(lambda p: gather(p, tp=True),
+                                        {n: w for n, w in v.items() if n != "router"}))
+            if "router" in v:
+                out[k]["router"] = gather(v["router"])
+        else:
+            out[k] = _gather_tree(v, gather, tp)
+    return out
+
+
+def _whole_kv(q, k, cfg) -> bool:
+    """Whether ``q`` holds a tensor-parallel rank's share of the heads and
+    ``k`` every kv head (their weights did not split over 'model')."""
+    return q.shape[2] < cfg.num_heads and k.shape[2] == cfg.num_kv_heads * cfg.kv_repeat
+
+
+def _local_kv(k, v, Hl: int, tp):
+    """The key/value heads (whole, after ``kv_repeat``) that this rank's
+    ``Hl`` query heads read: a contiguous run where they cover whole groups
+    or lie in one, else one a query head."""
+    g = Hl * tp.size // k.shape[2]              # query heads a kv head
+    lo = tp.rank * Hl
+    if Hl % g == 0 or g % Hl == 0:
+        sl = slice(lo // g, lo // g + max(1, Hl // g))
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.div(torch.arange(lo, lo + Hl, device=k.device), g, rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
+
+
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: a dict a submodule, a tensor a
     parameter, under the dict's own keys."""
@@ -269,6 +327,14 @@ class Model(nn.Module):
             else:
                 self.register_parameter(k, nn.Parameter(v))
         self.to(device)
+        self.gather = None     # set by the sharded step: parameter -> its whole value
+
+    def _t(self, p):
+        return p if self.gather is None else self.gather(p)
+
+    def _tree_of(self, mod) -> dict:
+        t = mod.tree()
+        return t if self.gather is None else _gather_tree(t, self.gather, current_tp())
 
     @property
     def device(self) -> torch.device:
@@ -291,13 +357,26 @@ class Model(nn.Module):
             return ((xf - mu) * torch.rsqrt(var + self.cfg.norm_eps) * p["scale"]).to(dt)
         return L.rmsnorm(p, x, self.cfg.norm_eps)
 
+    def _vocab_tp(self, p, dim: int):
+        """``current_tp()`` when the vocabulary dimension ``dim`` of the
+        sharded parameter ``p`` splits over 'model', else None."""
+        tp = current_tp()
+        return tp if tp is not None and self.gather is not None and tp.splits(p, dim) else None
+
     def _embed(self, tokens):
+        tp = self._vocab_tp(self.embed, 0)
+        if tp is not None:           # this rank's rows, zero elsewhere, summed over the ranks
+            table = self.gather(self.embed, tp=True)
+            i = tokens - tp.rank * table.shape[0]
+            mine = (i >= 0) & (i < table.shape[0])
+            rows = tp.leave(table[torch.where(mine, i, 0)] * mine[..., None])
+            return rows.to(self.cfg.dtype) * math.sqrt(self.cfg.d_model)
         # the row gather before the cast: the same values as casting the table
-        return self.embed[tokens].to(self.cfg.dtype) * math.sqrt(self.cfg.d_model)
+        return self._t(self.embed)[tokens].to(self.cfg.dtype) * math.sqrt(self.cfg.d_model)
 
     def _unembed(self):
-        return (self.embed.to(self.cfg.dtype).T if self.cfg.tie_embeddings
-                else self.unembed.to(self.cfg.dtype))
+        return (self._t(self.embed).to(self.cfg.dtype).T if self.cfg.tie_embeddings
+                else self._t(self.unembed).to(self.cfg.dtype))
 
     def _logits(self, x, w=None):
         w = self._unembed() if w is None else w
@@ -305,13 +384,17 @@ class Model(nn.Module):
         if self.cfg.logit_softcap:
             c = self.cfg.logit_softcap
             logits = c * torch.tanh(logits / c)
-        return logits
+        return constrain(logits, "batch", "seq", "vocab")
 
     def _window_for(self, pos_in_unit: int):
         return None if self.cfg.windows is None else self.cfg.windows[pos_in_unit]
 
     def _self_attn(self, p, h, positions, window, causal=True):
         cfg = self.cfg
+        tp = current_tp() if isinstance(p, TPParams) else None
+        if tp is not None:                 # this rank's heads; the sum of their outputs
+            y, kv = self._self_attn(dict(p), tp.enter(h), positions, window, causal)
+            return tp.leave(y), kv
         if cfg.attention == "mla":
             return L.mla_apply(p, h, positions, cfg.mla)
         acfg = cfg.attn_cfg(window)
@@ -327,18 +410,26 @@ class Model(nn.Module):
         if cfg.kv_repeat > 1:
             k = k.repeat_interleave(cfg.kv_repeat, dim=2)
             v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+        if _whole_kv(q, k, cfg):                # this rank's query heads read these
+            k, v = _local_kv(k, v, q.shape[2], current_tp())
         pos2d = positions if positions.ndim == 2 else positions[0]
         out = L.attention(q, k, v, pos2d, pos2d, acfg, causal=causal)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(h.dtype)), (k, v)
 
     def _cross_attn(self, p, h, positions, enc_states, enc_pos):
         cfg = self.cfg
+        tp = current_tp() if isinstance(p, TPParams) else None
+        if tp is not None:
+            return tp.leave(self._cross_attn(dict(p), tp.enter(h), positions,
+                                             tp.enter(enc_states), enc_pos))
         q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
         k = torch.einsum("bsd,dhk->bshk", enc_states, p["wk"].to(h.dtype))
         v = torch.einsum("bsd,dhk->bshk", enc_states, p["wv"].to(h.dtype))
         if cfg.kv_repeat > 1:
             k = k.repeat_interleave(cfg.kv_repeat, dim=2)
             v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+        if _whole_kv(q, k, cfg):
+            k, v = _local_kv(k, v, q.shape[2], current_tp())
         pos2d = positions if positions.ndim == 2 else positions[0]
         out = L.attention(q, k, v, pos2d, enc_pos, cfg.attn_cfg(), causal=False)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(h.dtype))
@@ -349,6 +440,9 @@ class Model(nn.Module):
             return y, aux + a
         if "maa_k" in p:                                   # rwkv channel mix, no x_prev
             return rwkv_channel_apply(p, h), aux
+        if isinstance(p, TPParams):                        # this rank's d_ff
+            tp = current_tp()
+            return tp.leave(L.mlp_apply(p, tp.enter(h), self.cfg.act)), aux
         return L.mlp_apply(p, h, self.cfg.act), aux
 
     def _zero(self):
@@ -386,16 +480,17 @@ class Model(nn.Module):
             h = self._norm(p["norm2"], x)
             y, aux = self._ffn(p["ffn"], h, aux)
             x = x + y
+            x = constrain(x, "batch", "seq", "embed")
         return x, aux
 
     def _enc_layer(self, unit, x, pos):
-        p = unit.tree()["l0"]
+        p = self._tree_of(unit)["l0"]
         h = self._norm(p["norm1"], x)
         y, _ = self._self_attn(p["attn"], h, pos, None, causal=False)
         x = x + y
         h = self._norm(p["norm2"], x)
         y, _ = self._ffn(p["ffn"], h, self._zero())
-        return x + y
+        return constrain(x + y, "batch", "seq", "embed")
 
     def _encode(self, batch):
         """The encoder over ``batch["frames"]`` (B, Se, d): (states, positions)."""
@@ -404,7 +499,7 @@ class Model(nn.Module):
         pos = torch.arange(Se, dtype=torch.int32, device=self.device).expand(B, Se)
         for unit in self.encoder:
             x = self._remat(self._enc_layer, unit, x, pos)
-        return self._norm(self.enc_norm.tree(), x), pos
+        return self._norm(self._tree_of(self.enc_norm), x), pos
 
     def _positions(self, batch, tokens):
         B, S = tokens.shape
@@ -426,7 +521,7 @@ class Model(nn.Module):
         x = x + y
         h = self._norm(p["norm2"], x)
         y, aux = self._ffn(p["ffn"], h, self._zero())
-        return x + y, aux
+        return constrain(x + y, "batch", "seq", "embed"), aux
 
     def apply_hidden(self, batch):
         """The forward pass up to the final norm (no logits)."""
@@ -442,15 +537,15 @@ class Model(nn.Module):
             enc_states, enc_pos = self._encode(batch)
         aux = self._zero()
         for i in range(cfg.first_dense):
-            x, a = self._dense_layer_fwd(getattr(self, f"dense{i}").tree(), x, positions)
+            x, a = self._dense_layer_fwd(self._tree_of(getattr(self, f"dense{i}")), x, positions)
             aux = aux + a
         for unit in self.units:
             x, a = self._remat(self._unit_call, unit, x, positions, enc_states, enc_pos)
             aux = aux + a
-        return self._norm(self.final_norm.tree(), x), aux
+        return self._norm(self._tree_of(self.final_norm), x), aux
 
     def _unit_call(self, unit, x, positions, enc_states, enc_pos):
-        return self._unit_fwd(unit.tree(), x, positions, enc_states, enc_pos)
+        return self._unit_fwd(self._tree_of(unit), x, positions, enc_states, enc_pos)
 
     def _chunk_nll(self, xc, tc, w):
         """(sum of the NLL over the chunk's valid targets (>= 0), their count).
@@ -464,13 +559,31 @@ class Model(nn.Module):
                               ignore_index=-100, reduction="sum")
         return nll, valid.sum()
 
+    def _chunk_nll_tp(self, xc, tc, w, tp):
+        """``_chunk_nll`` with the vocabulary split over 'model': this rank's
+        logits, their logsumexp's sum of exponentials and the gold logit
+        summed over the ranks."""
+        logits = self._logits(tp.enter(xc), w)
+        Vl = logits.shape[-1]
+        valid = tc >= 0
+        m = tp.group.all_reduce(logits.detach().amax(-1), "max")
+        se = tp.leave(torch.exp(logits - m[..., None]).sum(-1))
+        i = tc.long() - tp.rank * Vl
+        mine = valid & (i >= 0) & (i < Vl)
+        gold = logits.gather(-1, torch.where(mine, i, 0)[..., None])[..., 0]
+        gold = tp.leave(torch.where(mine, gold, 0.0))
+        nll = torch.where(valid, torch.log(se) + m - gold, 0.0).sum()
+        return nll, valid.sum()
+
     def loss(self, batch):
         """Chunked (fused) cross-entropy of ``batch["targets"]`` plus the MoE
         aux loss, a float32 scalar: the logits are made and reduced one
         sequence chunk of ``cfg.loss_chunk`` at a time (one chunk when it does
         not divide S), each chunk checkpointed when grad is enabled, so one
         chunk's logits are live at a time in the backward pass too and the
-        (B, S, V) tensor never exists."""
+        (B, S, V) tensor never exists. Under ``current_dp()`` the NLL sum and
+        the target count are summed over the data-parallel ranks: every rank
+        returns the whole batch's loss."""
         cfg = self.cfg
         x, aux = self.apply_hidden(batch)
         targets = batch["targets"]
@@ -478,18 +591,26 @@ class Model(nn.Module):
         C = min(cfg.loss_chunk, S)
         if S % C != 0:
             C = S                                   # irregular: single chunk
-        w = self._unembed()
+        table = self.embed if cfg.tie_embeddings else self.unembed
+        tp = self._vocab_tp(table, 0 if cfg.tie_embeddings else 1)
+        if tp is None:
+            w, nll, extra = self._unembed(), self._chunk_nll, ()
+        else:                               # this rank's vocabulary
+            w = self.gather(table, tp=True).to(cfg.dtype)
+            w, nll, extra = (w.T if cfg.tie_embeddings else w), self._chunk_nll_tp, (tp,)
         tot = self._zero()
         n = torch.zeros((), dtype=torch.int64, device=x.device)
         for i in range(S // C):
-            args = (x[:, i * C:(i + 1) * C], targets[:, i * C:(i + 1) * C], w)
+            args = (x[:, i * C:(i + 1) * C], targets[:, i * C:(i + 1) * C], w) + extra
             if torch.is_grad_enabled():
-                s, k = checkpoint(self._chunk_nll, *args, use_reentrant=False,
-                                  preserve_rng_state=False)
+                s, k = checkpoint(nll, *args, use_reentrant=False, preserve_rng_state=False)
             else:
-                s, k = self._chunk_nll(*args)
+                s, k = nll(*args)
             tot = tot + s
             n = n + k
+        dp = current_dp()
+        if dp is not None:
+            tot, n = dp.sum(tot), dp.all_reduce(n)
         return tot / n.clamp(min=1) + aux
 
     # ---------------- serving: cache / decode ----------------
@@ -583,7 +704,9 @@ class Model(nn.Module):
             k = apply_rope(k, mp, acfg.rope_theta, acfg.mrope_sections)
         cache["k"][:, pos] = k[:, 0]
         cache["v"][:, pos] = v[:, 0]
-        out = L.attention(q, cache["k"][:, :pos + 1], cache["v"][:, :pos + 1], positions, pos_k,
+        kc = constrain(cache["k"], "batch", "kv_seq", "kv_heads", None)
+        vc = constrain(cache["v"], "batch", "kv_seq", "kv_heads", None)
+        out = L.attention(q, kc[:, :pos + 1], vc[:, :pos + 1], positions, pos_k,
                           dataclasses.replace(acfg, blocked_threshold=1 << 30), causal=True)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(h.dtype))
 
@@ -599,14 +722,14 @@ class Model(nn.Module):
         # first_dense layers (deepseek layer 0) carry their own cache entries
         # under caches["dense"] (see init_dense_cache)
         for i in range(cfg.first_dense):
-            p = getattr(self, f"dense{i}").tree()
+            p = self._tree_of(getattr(self, f"dense{i}"))
             h = self._norm(p["norm1"], x)
             x = x + self._attn_decode(p["attn"], h, pos, caches["dense"][f"d{i}"], None)
             h = self._norm(p["norm2"], x)
             y, _ = self._ffn(p["ffn"], h, self._zero())
             x = x + y
         for g, unit in enumerate(self.units):
-            up = unit.tree()
+            up = self._tree_of(unit)
             for i, kind in enumerate(cfg.unit):
                 p, c = up[f"l{i}"], caches[f"l{i}"]
                 h = self._norm(p["norm1"], x)
@@ -628,7 +751,7 @@ class Model(nn.Module):
                 h = self._norm(p["norm2"], x)
                 y, _ = self._ffn(p["ffn"], h, self._zero())
                 x = x + y
-        x = self._norm(self.final_norm.tree(), x)
+        x = self._norm(self._tree_of(self.final_norm), x)
         return self._logits(x), caches
 
 

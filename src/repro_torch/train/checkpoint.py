@@ -11,8 +11,11 @@ in ``jax.tree_util.tree_flatten_with_path`` order of ``{"params": ...,
 axis at save and split at restore (``models.convert.jax_layout``), so each
 package restores the other's checkpoints. Writes are atomic (tmp dir +
 rename); ``keep_last`` old steps are pruned. ``restore(..., device=)``
-places every leaf on one device: the one-host form of the elastic restore.
-Restoring onto a sharded mesh waits for the LM partition rules.
+places every leaf on one device; ``restore(..., mesh=, param_shardings=,
+opt_shardings=)`` places each leaf on the mesh under its sharding (each
+rank keeps its block): the elastic path, onto a mesh of any shape. Trees of
+DTensors save whole: every rank of their mesh calls ``save`` (the leaves
+are gathered), and rank 0 writes.
 """
 from __future__ import annotations
 
@@ -23,8 +26,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import distribute
 from repro_torch.models.convert import from_jax_layout, jax_layout
+
 
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3):
@@ -40,6 +46,10 @@ class CheckpointManager:
         if opt_state is not None:
             tree["opt"] = opt_state
         flat = jax_layout(tree)
+        final = os.path.join(self.dir, f"step_{step}")
+        if dist.is_initialized() and dist.get_rank() != 0:
+            dist.barrier()                   # rank 0 writes
+            return final
         tmp = os.path.join(self.dir, f".tmp_step_{step}_{os.getpid()}")
         final = os.path.join(self.dir, f"step_{step}")
         os.makedirs(tmp, exist_ok=True)
@@ -59,6 +69,8 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)               # atomic publish
         self._prune()
+        if dist.is_initialized():
+            dist.barrier()
         return final
 
     def _prune(self):
@@ -81,14 +93,17 @@ class CheckpointManager:
         return s[-1] if s else None
 
     # --------------------------------------------------------------- restore
-    def restore(self, step: int | None, params_like, opt_like=None, device=None):
+    def restore(self, step: int | None, params_like, opt_like=None, device=None,
+                mesh=None, param_shardings=None, opt_shardings=None):
         """Load a checkpoint into trees shaped as ``params_like`` and
         ``opt_like`` (port trees; a ``meta`` tree will do), each leaf cast to
         the like leaf's dtype and placed on ``device`` (default: the like
-        leaf's, the CPU for ``meta``). Raises ValueError when the
-        checkpoint's leaves are not the trees' (a checkpoint with optimizer
-        state restored without ``opt_like`` too). Returns (params, opt_state,
-        manifest)."""
+        leaf's, the CPU for ``meta``). With ``mesh``, each leaf then becomes a
+        DTensor under its ``param_shardings`` / ``opt_shardings`` leaf
+        (NamedSharding trees shaped as the like trees), each rank keeping its
+        block. Raises ValueError when the checkpoint's leaves are not the
+        trees' (a checkpoint with optimizer state restored without
+        ``opt_like`` too). Returns (params, opt_state, manifest)."""
         if step is None:
             step = self.latest()
         if step is None:
@@ -102,7 +117,20 @@ class CheckpointManager:
         if opt_like is not None:
             tree["opt"] = opt_like
         restored = from_jax_layout(flat, tree, device=device, cast=True)
-        return restored["params"], restored.get("opt"), manifest
+        params, opt = restored["params"], restored.get("opt")
+        if mesh is not None:
+            params = _placed(params, param_shardings)
+            opt = None if opt is None else _placed(opt, opt_shardings)
+        return params, opt, manifest
+
+
+def _placed(tree, shardings):
+    """Each leaf of ``tree`` as a DTensor under the matching sharding."""
+    if isinstance(tree, dict):
+        return {k: _placed(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_placed(t, s) for t, s in zip(tree, shardings)]
+    return distribute(tree, shardings)
 
 
 def assign_(dst, src) -> None:

@@ -15,8 +15,20 @@ whose ``units`` is a list of per-unit trees. The state is
 (``models.convert.jax_layout`` stacks it as the JAX package's). The update
 runs in place (``adamw_apply_``) over groups of leaves with ``torch._foreach``
 ops, each op the JAX expression's, in its order; ``adamw_update`` is the JAX
-signature's functional form. The ZeRO state shardings (``zero_axes``,
-``opt_state_shardings``) wait for the LM partition rules.
+signature's functional form.
+
+ZeRO-1 (``zero_axes``, ``opt_state_shardings``): the state's shardings are
+the parameters' with an extra ('data','pod') assignment on the first
+still-replicated, dividing dimension, the JAX package's rule. On the JAX
+layout's stacked leaves (``shapes_and_axes``) that dimension may be the
+unit stack G; the port keeps units as a list, so its sharded step applies
+the rule to each unit's own leaf, which then takes the extra sharding on
+its first replicated, dividing dimension instead, or none. Where the two
+differ (rwkv6-3b on both production meshes, qwen2-vl-72b on the single
+pod), the per-device bytes are still equal: the train_4k dry run's
+argument bytes in the JAX layout and the port's are rwkv6-3b 558324616
+(single pod) and 481998792 (multi-pod), qwen2-vl-72b 7715639816 (single
+pod) (``launch.dryrun``'s ``argument_bytes`` and ``argument_bytes_port``).
 """
 from __future__ import annotations
 
@@ -24,6 +36,9 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import (Axes, ShardingRules, _tree_pairs, axis_sizes,
+                                              logical_to_physical, named_sharding)
 
 BLOCK = 128
 # leaves updated together by one _foreach op each: a group holds up to this many
@@ -216,3 +231,46 @@ def adamw_update(grads, state: dict, params, lr, cfg: OptConfig):
     gnorm = global_norm(tree_leaves(grads))
     adamw_apply_(params, grads, state, lr, gnorm, cfg)
     return params, state, gnorm
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding for the state
+# ---------------------------------------------------------------------------
+
+def zero_axes(axes: Axes, shape, mesh, rules: ShardingRules) -> Axes:
+    """Param logical axes -> state logical axes with ZeRO 'opt' on the first
+    dim that resolves to replicated and divides the opt axes product."""
+    spec = logical_to_physical(axes, mesh, rules, shape)
+    sizes = axis_sizes(mesh)
+    opt_axes = rules.get("opt") or ()
+    opt_size = 1
+    for a in opt_axes:
+        opt_size *= sizes.get(a, 1)
+    out = list(axes)
+    for d, (name, resolved) in enumerate(zip(axes, tuple(spec) + (None,) * 9)):
+        if resolved is None and shape[d] % max(opt_size, 1) == 0 and opt_size > 1:
+            out[d] = "opt"
+            break
+    return Axes(*out)
+
+
+def opt_state_shardings(params_shapes, param_axes, mesh, rules: ShardingRules,
+                        cfg: OptConfig):
+    """NamedSharding tree matching ``adamw_init``'s structure, for a tree of
+    parameters (tensors, ``meta`` ones will do) and its Axes tree: the JAX
+    layout's (``shapes_and_axes``) or the port's (units as lists)."""
+    def one(t, axes):
+        shape = tuple(t.shape)
+        base = named_sharding(zero_axes(axes, shape, mesh, rules), mesh, rules, shape)
+        if cfg.state_bits == 8:
+            # scales are 2D (rows, blocks): replicated (small)
+            rep = named_sharding(Axes(None, None), mesh, rules)
+            out = {"m_q": base, "m_s": rep, "v_q": base, "v_s": rep}
+        else:
+            out = {"m": base, "v": base}
+        if cfg.master_weights:
+            out["master"] = base
+        return out
+
+    return {"mu": _tree_pairs(params_shapes, param_axes, one),
+            "count": named_sharding(Axes(), mesh, rules)}

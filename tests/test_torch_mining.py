@@ -255,14 +255,23 @@ PORT_EXAMPLES = [SRC.parent / "examples" / f for f in (
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (the LM's models/, configs/ and train/ too),
-    and the example counterparts up to their argument parsing (``--help``)."""
+    """Every module of the port (the LM's models/, configs/ and train/ too,
+    the dry run, the meshes, the roofline and the compressed mean), and the
+    example counterparts up to their argument parsing (``--help``); the
+    imports start no process group and leave XLA_FLAGS as it was."""
     mods = _port_modules()
     assert {"repro_torch.kernels.intersect", "repro_torch.models.transformer",
             "repro_torch.models.convert", "repro_torch.configs.jamba_1_5_large_398b",
-            "repro_torch.train.checkpoint", "repro_torch.launch.train"} <= set(mods)
-    code = ("import importlib, runpy, sys\n"
+            "repro_torch.train.checkpoint", "repro_torch.launch.train",
+            "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.roofline.analysis",
+            "repro_torch.distributed.compression"} <= set(mods)
+    code = ("import importlib, os, runpy, sys\n"
+            "import torch.distributed as dist\n"
+            "flags = os.environ.get('XLA_FLAGS')\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "assert not dist.is_initialized(), 'an import started a process group'\n"
+            "assert os.environ.get('XLA_FLAGS') == flags, 'an import set XLA_FLAGS'\n"
             f"for ex in {[str(p) for p in PORT_EXAMPLES]!r}:\n"
             "    sys.argv = [ex, '--help']\n"
             "    try:\n"
