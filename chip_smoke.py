@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases card,lm,examples          # the LM and the examples
     python3 chip_smoke.py --phases card,train                # LM training
     python3 chip_smoke.py --phases card,dist                 # sharding, dry run, roofline
+    python3 chip_smoke.py --phases card,build,reference      # the brute-force oracles
     python3 chip_smoke.py --src OTHER/src --phases card,build,parity,profile
 
 Phases, each printing its own lines and its seconds; any mismatch or
@@ -65,6 +66,18 @@ exception exits non-zero:
               of benchmarks/bench_mining.py twice on email-eu-core 0.25 (the
               baseline.json counts, nothing rebuilt on the second pass);
               aggregate_many against per-query aggregates
+ 8b. reference the brute-force oracles (mining/reference.py) on the card:
+              four_motif_counts of email-eu-core 0.25 (C(250, 4) quadruples
+              in chunks on the card; cold and warm wall, peak memory) equal to
+              a card Miner's count_many of the six 4-motifs; on two tiny
+              generated graphs the triangle, 4- and 5-clique, tailed-triangle
+              and induced three-chain oracles and pattern_count_oracle of
+              diamond, paw and 4-cycle equal to the card session's counts,
+              weighted_pattern_oracle equal to Miner.aggregate bit for bit
+              (dyadic weights), fsm_oracle equal to fsm; launch.mine --app F4M
+              --check --torch-profile in a subprocess: both OK lines, and its
+              Chrome trace holds the device events of every hand kernel that
+              count_many launched
   9. host     the host-compaction path (device_compact=False): the JAX
               package's counters on email-eu-core 0.25 4M, wiki-vote 4C and
               4M equal to the device path's counts, mico 4C in both modes
@@ -169,7 +182,9 @@ exception exits non-zero:
               that world bit for bit equal to the same call over a CPU gloo
               group; the roofline of one qwen3-0.6b bfloat16 8 x 512 step on
               the card beside the train phase's ms a step and the MFU (printed,
-              not gated)
+              not gated); compress_pods=True on a one-card NCCL ('pod', 'data',
+              'model') = (1, 1, 1) mesh, 3 qwen3-0.6b smoke steps in float32
+              within rtol 1e-5 of the same steps on the CPU over gloo
  21. profile  mico's queries once more under torch.profiler, then mico's
               4-clique on the host path and email-core's spmm: device busy
               time against the untraced wall time, and the top device kernels
@@ -1911,6 +1926,133 @@ def phase_forest(graphs: dict) -> None:
         raise SystemExit("[forest] MISMATCH aggregate_many / fused count + aggregate")
 
 
+# The brute-force oracles (mining/reference.py) on the card: the 4-motif
+# census of email-eu-core 0.25 against the session's count_many, then the
+# other oracles against a card session on two tiny generated graphs (the
+# permutation oracles are exponential: 20 vertices), weights seed 11 as in
+# tests/test_values.py, and FSM on tests/test_fsm.py's first labelled graph.
+REFERENCE_TINY = (("erdos_renyi(20, 70, seed=7)", "erdos_renyi", (20, 70), 7),
+                  ("clique_planted(20, 40, (6, 5), seed=1)", "clique_planted",
+                   (20, 40, (6, 5)), 1))
+REFERENCE_MOTIFS = ("diamond", "paw", "4-cycle")
+REFERENCE_FSM = (22, 55, 1, 2, 2)        # erdos_renyi(22, 55, seed), seed, labels, support
+CENSUS_LIMIT_S = 60.0                    # the census of email-eu-core 0.25 on the card
+
+
+def _reference_tiny(card: str) -> None:
+    """(b): the oracles against a card session on REFERENCE_TINY's graphs and
+    REFERENCE_FSM's; weighted results bit for bit."""
+    import importlib
+    import struct
+
+    from repro_torch import Miner
+    from repro_torch.graph import build_csr, edge_list, edge_weights, generators, with_edge_values
+    from repro_torch.mining import reference as R
+    from repro_torch.mining.plan import FOUR_MOTIFS, THREE_CHAIN_INDUCED, TRIANGLE, clique_pattern
+    F = importlib.import_module("repro_torch.mining.fsm")
+    for label, gen, args, seed in REFERENCE_TINY:
+        g = build_csr(getattr(generators, gen)(*args, seed=seed), args[0])
+        m = Miner(g, device=DEVICE)
+        t0 = time.perf_counter()
+        want = {"triangle": R.triangle_count(g), "4-clique": R.clique_count(g, 4),
+                "5-clique": R.clique_count(g, 5),
+                "tailed-triangle": R.tailed_triangle_count(g),
+                "three-chain-induced": R.three_chain_count(g, induced=True),
+                **{q: R.pattern_count_oracle(g, FOUR_MOTIFS[q]) for q in REFERENCE_MOTIFS}}
+        t_oracle = time.perf_counter() - t0
+        got = {q: m.count(q) for q in want}
+        wg = with_edge_values(g, edge_weights(edge_list(g), seed=11))
+        wm = Miner(wg, device=DEVICE)
+        agg = {}
+        for name, pat in (("triangle", TRIANGLE), ("three-chain-induced", THREE_CHAIN_INDUCED),
+                          ("4-clique", clique_pattern(4))):
+            for op in AGG_OPS:
+                a, b = float(wm.aggregate(pat, op)), R.weighted_pattern_oracle(wg, pat, op)
+                agg[name, op] = (a, b, struct.pack("<d", a) == struct.pack("<d", b))
+        print(f"[reference] {label}: card session {got}; oracles equal "
+              f"{got == want} ({t_oracle:.2f}s of host enumeration); weighted (card, "
+              f"oracle, bit for bit): " + "; ".join(f"{n} {op} {a!r} {b!r} {same}"
+                                                   for (n, op), (a, b, same) in agg.items())
+              + f" ({card})", flush=True)
+        if got != want or not all(same for _, _, same in agg.values()):
+            raise SystemExit(f"[reference] MISMATCH {label}: {got} != {want} or {agg}")
+    n, e, seed, nlab, support = REFERENCE_FSM
+    g = build_csr(generators.erdos_renyi(n, e, seed=seed), n)
+    labels = F.random_labels(n, nlab, seed=seed)
+    got = F.fsm(g, labels, support, miner=Miner(g, device=DEVICE))
+    want = R.fsm_oracle(g, labels, support, metric="mni")
+    print(f"[reference] fsm erdos_renyi({n}, {e}, seed={seed}) labels {nlab} support "
+          f"{support}: {len(got)} frequent patterns on the card, oracle {len(want)}, equal "
+          f"{got == want} ({card})", flush=True)
+    if got != want:
+        raise SystemExit(f"[reference] MISMATCH fsm: {got} != {want}")
+
+
+def phase_reference(graphs: dict, card: str, src: Path) -> None:
+    """The brute-force oracles on the card. (a) reference.four_motif_counts
+    of email-eu-core 0.25 on the card (its wall, cold and warm, and its peak
+    memory) equal to a card Miner's count_many of the six 4-motifs and to
+    baseline.json's session counts; (b) _reference_tiny; (c) the launcher
+    ``launch.mine --app F4M --check --torch-profile DIR`` in a subprocess:
+    both OK lines, and its Chrome trace holds the device events of every
+    hand kernel that (a)'s count_many launched."""
+    import os
+    import tempfile
+
+    from repro_torch import Miner
+    from repro_torch.mining import reference as R
+    from repro_torch.mining.plan import FOUR_MOTIF_SHAPES
+    names = list(FOUR_MOTIF_SHAPES)
+    g = graphs["email-eu-core", 0.25]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    census, t_cold = _timed(lambda: R.four_motif_counts(g, device=DEVICE))
+    peak = torch.cuda.max_memory_allocated() - base
+    again, t_warm = _timed(lambda: R.four_motif_counts(g, device=DEVICE))
+    miner = Miner(g, device=DEVICE)
+    K = wrappers()
+    zero_launches()
+    fused, t_fused = _timed(lambda: dict(zip(names, miner.count_many(names))))
+    launched = {name: fn.launches for name, fn in K.items() if fn.launches}
+    n = g.num_vertices
+    print(f"[reference] (a) email-eu-core x0.25 4-motif census on the card, C({n}, 4) = "
+          f"{math.comb(n, 4)} quadruples: {census}; {t_cold:.3f}s cold, {t_warm:.3f}s warm, "
+          f"peak {peak / 2**20:.1f} MiB; count_many {t_fused:.3f}s, equal {census == fused}, "
+          f"launches {launched} ({card})", flush=True)
+    if not (census == again == fused == SESSION_COUNTS["4M"]) or t_cold > CENSUS_LIMIT_S \
+            or peak > 2**30:
+        raise SystemExit(f"[reference] MISMATCH census {census} / {again} against "
+                         f"count_many {fused}, or {t_cold:.1f}s / {peak} bytes over its limits")
+    _reference_tiny(card)
+    env = {**os.environ, "PYTHONPATH": str(src.resolve())}
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.mine", "--app", "F4M", "--dataset",
+               "email-eu-core", "--scale", "0.25", "--check", "--torch-profile", d]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"[reference] (c) launch.mine exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        files = os.listdir(d)
+        trace = json.load(open(os.path.join(d, "trace.json")))
+    ok_lines = [line for line in proc.stdout.splitlines() if line.endswith(" OK")]
+    owned: dict = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "kernel":
+            name = kernel_owner(e.get("name", ""))
+            if name is not None:
+                owned[name] = owned.get(name, 0) + 1
+    print(f"[reference] (c) launch.mine F4M email-eu-core x0.25 --check --torch-profile: "
+          f"{ok_lines}; trace files {files}, {len(trace['traceEvents'])} events, hand "
+          f"kernels' device events {owned} ({dt:.1f}s with start-up, {card})", flush=True)
+    if ok_lines != ["[mine] fused == independent per-plan counts OK",
+                    "[mine] fused == brute-force census OK"] or not set(launched) <= set(owned):
+        raise SystemExit(f"[reference] (c) the launcher's check or trace falls short: "
+                         f"{ok_lines}, {owned} against {launched}")
+
+
 def phase_host(graphs: dict) -> dict:
     """device_compact=False: the mask, one compact-rows launch and one host
     read per expand call, then the host oracle. Returns the compact-rows
@@ -3478,6 +3620,46 @@ print(json.dumps(out))
 """
 
 
+# compress_pods on a one-rank ('pod', 'data', 'model') = (1, 1, 1) mesh: the
+# same DIST_STEPS float32 steps of qwen3-0.6b's smoke config on the card
+# (NCCL) and on the CPU (gloo), each in a world of its own
+DIST_PODS = r"""
+import dataclasses, json, socket, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_arch
+from repro_torch.launch.mesh import device_mesh
+from repro_torch.models.transformer import Model
+from repro_torch.train.data import SyntheticLMData
+from repro_torch.train.optimizer import OptConfig, adamw_init
+from repro_torch.train.train_step import jit_train_step
+
+device, steps = sys.argv[1], int(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+with socket.socket() as s:                       # a free local port for the rendezvous
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+if device == "cuda":
+    torch.cuda.set_device(0)
+dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                        init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+mesh = device_mesh((1, 1, 1), ("pod", "data", "model"), device)
+cfg = dataclasses.replace(get_arch("qwen3-0.6b").smoke_config, dtype=torch.float32)
+model = Model(cfg, device=device, generator=torch.Generator().manual_seed(0))
+data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4, seed=0)
+oc = OptConfig(lr=3e-3)
+step, _ = jit_train_step(model, mesh, opt_cfg=oc, total_steps=steps, compress_pods=True)
+opt = adamw_init(model.tree(), oc)
+got = []
+for i in range(steps):
+    m = step(opt, {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}, i)
+    got.append([float(m["loss"]), float(m["gnorm"])])
+    step.apply(opt, m)
+print(json.dumps({"steps": got, "compressed": step.pod_group is not None}))
+dist.destroy_process_group()
+"""
+
+
 def _dist_run(script: str, args: list, env: dict):
     return subprocess.Popen([sys.executable, "-c", script, *args], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -3502,18 +3684,23 @@ def phase_dist(card: str, src: Path) -> None:
     CPU tensors over a gloo group; (d) the roofline of one qwen3-0.6b
     bfloat16 DIST_ROOF step on the card (CostCounter's counted FLOPs and
     bytes, no collectives), printed beside the train phase's measured ms a
-    step and the MFU (6·N·tokens / (step s x peak)), not gated."""
+    step and the MFU (6·N·tokens / (step s x peak)), not gated; (e)
+    compress_pods=True on a one-card NCCL ('pod', 'data', 'model') = (1, 1, 1)
+    mesh: DIST_STEPS float32 steps of qwen3-0.6b's smoke config, loss and
+    gnorm within rtol 1e-5 of the same steps on the CPU over gloo."""
     import os
     env = {**os.environ, "PYTHONPATH": str(src.resolve())}
     t0 = time.perf_counter()
     dry = _dist_run(DIST_DRYRUN, [], env)
     crd = _dist_run(DIST_CARD, [json.dumps(DIST_ARCHS), str(DIST_STEPS), json.dumps(DIST_ROOF)],
                     env)
+    pods = {dev: _dist_run(DIST_PODS, [dev, str(DIST_STEPS)], env) for dev in ("cuda", "cpu")}
     try:
         res = _dist_result(crd, "the card's world")
         d = _dist_result(dry, "dry run")
+        pod = {dev: _dist_result(p, f"compress_pods on {dev}") for dev, p in pods.items()}
     finally:
-        for p in (dry, crd):
+        for p in (dry, crd, *pods.values()):
             if p.poll() is None:
                 p.kill()
     for arch, (one, sharded) in res["steps"].items():
@@ -3528,6 +3715,17 @@ def phase_dist(card: str, src: Path) -> None:
           f"residual bit for bit {res['compressed']} ({card})", flush=True)
     if res["compressed"] != [True, True]:
         raise SystemExit("[dist] compressed_mean on the card differs from its CPU value")
+    card_s, cpu_s = pod["cuda"]["steps"], pod["cpu"]["steps"]
+    dl = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card_s, cpu_s))
+    dg = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card_s, cpu_s))
+    print(f"[dist] (e) compress_pods=True, qwen3-0.6b smoke float32, {DIST_STEPS} steps at 4 x "
+          f"16 on a one-card NCCL ('pod', 'data', 'model') = (1, 1, 1) mesh against the same "
+          f"steps on the CPU (gloo): loss rel {dl:.2e}, gnorm rel {dg:.2e}; losses "
+          f"{[round(a[0], 6) for a in card_s]}, gnorms {[round(a[1], 6) for a in card_s]} "
+          f"({card})", flush=True)
+    if not (pod["cuda"]["compressed"] and pod["cpu"]["compressed"] and len(card_s) == DIST_STEPS
+            and dl <= 1e-5 and dg <= 1e-5):
+        raise SystemExit(f"[dist] compress_pods on the card differs from the CPU: {pod}")
     r = d["record"]
     if r["status"] != "ok":
         raise SystemExit(f"[dist] dry run of qwen3-0.6b train_4k: {r.get('error')}")
@@ -3562,8 +3760,8 @@ def phase_dist(card: str, src: Path) -> None:
 HW_BF16_FLOPS = 989.4e12         # H100 SXM bf16 dense, NVIDIA data sheet (roofline.HW)
 
 PHASES = ("card", "build", "parity", "csr", "main", "weighted", "sparse", "forest",
-          "host", "emit", "fsm", "telemetry", "shard", "serve", "isa", "bitmap", "lm", "examples",
-          "train", "dist", "profile")
+          "reference", "host", "emit", "fsm", "telemetry", "shard", "serve", "isa", "bitmap",
+          "lm", "examples", "train", "dist", "profile")
 
 
 def main(argv=None) -> int:
@@ -3603,8 +3801,8 @@ def main(argv=None) -> int:
         report = timed("parity", phase_parity)
     if "csr" in run:
         timed("csr", phase_csr, report)
-    if run & {"main", "forest", "host", "emit", "fsm", "telemetry", "shard", "serve", "isa",
-              "bitmap", "profile"}:
+    if run & {"main", "forest", "reference", "host", "emit", "fsm", "telemetry", "shard",
+              "serve", "isa", "bitmap", "profile"}:
         graphs = timed("graphs", build_graphs)
     if "main" in run:
         counts, launches = timed("main", phase_main_path, graphs)
@@ -3614,6 +3812,8 @@ def main(argv=None) -> int:
         launches.update(timed("sparse", phase_sparse))
     if "forest" in run:
         timed("forest", phase_forest, graphs)
+    if "reference" in run:
+        timed("reference", phase_reference, graphs, card, args.src)
     if "host" in run:
         launches.update(timed("host", phase_host, graphs))
     emit_launches = {}

@@ -22,8 +22,9 @@ import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 
 
-def _quant(x: torch.Tensor):
-    scale = torch.max(torch.abs(x)) / 127.0 + 1e-12
+def _quant(x: torch.Tensor, scale: torch.Tensor | None = None):
+    if scale is None:
+        scale = torch.max(torch.abs(x)) / 127.0 + 1e-12
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
 
 
@@ -31,16 +32,19 @@ def _group(group):
     return group if group is not None else dist.group.WORLD
 
 
-def compressed_mean(x: torch.Tensor, group=None, err: torch.Tensor | None = None):
+def compressed_mean(x: torch.Tensor, group=None, err: torch.Tensor | None = None,
+                    scale: torch.Tensor | None = None):
     """Mean over the ranks of ``group`` (default: the world) of x (+err),
-    int8 on the wire. Every rank of the group calls it. Returns
-    (mean in x's dtype, new_err in float32)."""
+    int8 on the wire. Every rank of the group calls it. ``scale`` is the
+    quantisation scale where x is this rank's block of a larger tensor
+    whose scale every block must share (the whole tensor's max |x| / 127 +
+    1e-12); None: x's own. Returns (mean in x's dtype, new_err in float32)."""
     group = _group(group)
     n = dist.get_world_size(group)
     xf = x.float()
     if err is not None:
         xf = xf + err
-    q, scale = _quant(xf)
+    q, scale = _quant(xf, scale)
     total = funcol.all_reduce(q.to(torch.int32), "sum", group)
     scale_max = funcol.all_reduce(scale, "max", group)   # shared dequant scale
     mean = (total.float() * scale_max) / n

@@ -14,9 +14,9 @@ The motif batches run their patterns through one plan forest
 three-chain), and 4M, the six 4-motifs. F3M and F4M are the same batches
 with the forest's sharing report printed first; ``--independent`` runs a
 batch pattern by pattern instead, and ``--check`` (F3M, F4M) asserts that
-the fused counts equal the independent ones. The JAX launcher's ``--check``
-also holds F4M to a brute-force census (``repro.mining.reference``, which
-needs networkx); the port leaves that census out.
+the fused counts equal the independent ones, and on a graph of at most 256
+vertices that F4M's equal the brute-force census of every vertex quadruple
+(``mining.reference.four_motif_counts`` on the session's device).
 
 FSM and sFSM mine frequent labelled subgraphs of up to three edges
 (``mining.fsm``, MNI support and embedding-count support) with
@@ -34,7 +34,9 @@ cards, or N times the CPU with ``--device cpu``; ``Miner(mesh_devices=)``
 puts several shards on one card) and ``--session-stats`` then prints the
 per-shard feed items and the cross-shard reductions. ``--partitions N``
 prints the load imbalance of a degree-balanced N-way vertex partition
-(``distributed.fault_tolerance``).
+(``distributed.fault_tolerance``). ``--torch-profile LOGDIR`` wraps the
+query in ``torch.profiler`` (``Telemetry.torch_profile``: CPU activity, and
+CUDA activity on a card) and writes its Chrome trace to LOGDIR/trace.json.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ import numpy as np
 
 from repro_torch.distributed.fault_tolerance import balanced_vertex_partition
 from repro_torch.graph.datasets import DATASETS, dataset_stats, get_dataset
-from repro_torch.mining import baseline, exhaustive
+from repro_torch.mining import baseline, exhaustive, reference
 from repro_torch.mining.fsm import fsm, random_labels, sfsm
 from repro_torch.mining.plan import FOUR_MOTIF_SHAPES, THREE_CHAIN_INDUCED, TRIANGLE
 from repro_torch.mining.session import Miner, MinerConfig
@@ -128,7 +130,8 @@ def main(argv=None):
                          "through the fused plan forest")
     ap.add_argument("--check", action="store_true",
                     help="F3M/F4M: assert fused counts == independent "
-                         "per-pattern counts")
+                         "per-pattern counts (and F4M's == the brute-force "
+                         "census when the graph has at most 256 vertices)")
     ap.add_argument("--support", type=int, default=100,
                     help="FSM/sFSM: minimum support of a frequent pattern")
     ap.add_argument("--labels", type=int, default=4,
@@ -139,6 +142,9 @@ def main(argv=None):
     ap.add_argument("--partitions", type=int, default=0,
                     help="print degree-balanced partition stats (straggler)")
     add_session_args(ap)
+    ap.add_argument("--torch-profile", default="", metavar="LOGDIR",
+                    help="wrap the query in torch.profiler (CPU, and CUDA on a "
+                         "card); its Chrome trace is written to LOGDIR/trace.json")
     args = ap.parse_args(argv)
     if args.baseline and args.app not in BASELINES:
         ap.error(f"no scalar baseline for {args.app}; "
@@ -160,8 +166,9 @@ def main(argv=None):
         print(f"[mine] forest: {forest_report(args.app, miner)}")
     t0 = time.perf_counter()
     # ints on the host: the device work is done
-    res = run_app(args.app, miner, fused=not args.independent, support=args.support,
-                  labels=labels)
+    with telemetry.torch_profile(args.torch_profile or None, miner.config.device):
+        res = run_app(args.app, miner, fused=not args.independent, support=args.support,
+                      labels=labels)
     dt = time.perf_counter() - t0
     print(f"[mine] {args.app} = {res}  ({dt:.2f}s on {args.device}, "
           f"runner {miner.stats['runner']})")
@@ -175,6 +182,11 @@ def main(argv=None):
         if indep != res:
             raise SystemExit(f"[mine] fused {res} != independent {indep}")
         print("[mine] fused == independent per-plan counts OK")
+        if args.app == "F4M" and g.num_vertices <= 256:
+            census = reference.four_motif_counts(g, device=miner.config.device)
+            if census != res:
+                raise SystemExit(f"[mine] fused {res} != brute-force census {census}")
+            print("[mine] fused == brute-force census OK")
     if args.baseline:
         t0 = time.perf_counter()
         rb = run_baseline(args.app, g)

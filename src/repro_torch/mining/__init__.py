@@ -4,13 +4,13 @@ with ``mesh=``), the concurrent ``MiningService`` over a pool of sessions
 layer, and the workloads over the session (FSM, the exhaustive-check
 baseline, and the one-shot ``apps`` surface with the FSM feed).
 
-The counterpart of ``repro.mining``'s surface, less ``reference`` (the
-brute-force oracles need networkx). The historical one-shot helpers
-(``apps.triangle_count`` and friends) are re-exported lazily as deprecated
-shims over ``Miner``: importable, but each call emits a
+The counterpart of ``repro.mining``'s surface, ``reference`` (the
+brute-force oracles, without networkx) included. The historical one-shot
+helpers (``apps.triangle_count`` and friends) are re-exported lazily as
+deprecated shims over ``Miner``: importable, but each call emits a
 ``DeprecationWarning``; ``shared_session`` stays supported.
 """
-from . import apps
+from . import apps, reference
 from .apps import fsm_pattern_feed, shared_session, triangle_list_host
 from .exhaustive import exhaustive_count
 from .forest import PlanForest, build_forest, schedule_patterns
@@ -25,7 +25,7 @@ __all__ = ["Miner", "MinerConfig", "MiningService", "ExecutableCache", "mesh_sig
            "WavePlan", "compile_pattern", "motif", "pattern", "resolve_query",
            "FOUR_MOTIFS", "FOUR_MOTIF_SHAPES", "PlanForest", "build_forest",
            "schedule_patterns", "fsm", "sfsm", "random_labels", "exhaustive_count", "apps",
-           "fsm_pattern_feed", "shared_session", "triangle_list_host"]
+           "reference", "fsm_pattern_feed", "shared_session", "triangle_list_host"]
 
 # legacy names re-exported for source compatibility; the one-shot helpers
 # among them warn on each CALL (importing does not)

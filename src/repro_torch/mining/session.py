@@ -47,6 +47,10 @@ spans → ``dispatch`` spans around each level call, ended by a synchronize
 on a card. ``telemetry.write_trace(path)`` writes it as Chrome-trace JSON.
 The tracer is no part of any cache key, and with it off the engine opens
 no span and adds no synchronize and no launch.
+``with miner.telemetry.torch_profile(logdir, miner.config.device): ...``
+wraps a query in ``torch.profiler`` (its kernels' device events on a card)
+and writes the profile's Chrome trace to ``logdir`` (the JAX package's
+``jax_profile`` hook; the launchers' ``--torch-profile``).
 
 **Mesh** — ``Miner(g, mesh=S)`` (S > 1) mines data-parallel over S
 shards (``mining.shard.ShardedWaveRunner``): the first S cards of a

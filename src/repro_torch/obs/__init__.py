@@ -15,8 +15,17 @@ The counterpart of ``repro.obs``: one ``Telemetry`` object per session.
 
 ``Telemetry()`` is disabled tracing + live metrics; ``Miner`` shares one
 ``Telemetry`` with its runner so a query's counters land in one place.
+
+``Telemetry.torch_profile(logdir)`` takes the place of the JAX package's
+``jax_profile``: it wraps a query in ``torch.profiler`` (device kernels
+included on a card) and writes one Chrome trace to ``logdir``.
 """
 from __future__ import annotations
+
+import os
+from contextlib import contextmanager
+
+import torch
 
 from .export import chrome_trace, prometheus_text, write_chrome_trace
 from .registry import (Counter, Gauge, Histogram, LegacyStatsView,
@@ -76,6 +85,33 @@ class Telemetry:
 
     def prometheus_text(self, prefix: str = "mining_") -> str:
         return self.metrics.prometheus_text(prefix=prefix)
+
+    # ---------------------------------------------------- torch profiler
+    @contextmanager
+    def torch_profile(self, logdir: str | None, device=None):
+        """``torch.profiler`` around a query, the counterpart of the JAX
+        package's ``jax_profile``: ``with tel.torch_profile("/tmp/prof",
+        miner.config.device): miner.count(...)``. CPU activity always, CUDA
+        activity when ``device`` is a card (None: when torch sees one); on
+        exit the trace is written to ``<logdir>/trace.json``. ``logdir``
+        None or empty is a no-op that yields None, so callers can pass the
+        CLI flag through unconditionally."""
+        if not logdir:
+            yield None
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        on_card = (torch.cuda.is_available() if device is None
+                   else torch.device(device).type == "cuda")
+        if on_card:
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"torch_profile on {device!r}: torch sees no CUDA device")
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(logdir, exist_ok=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            yield logdir
+            if on_card:
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 # module-level disabled singleton: runners built without a session share

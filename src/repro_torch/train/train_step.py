@@ -44,10 +44,16 @@ package's. On a mesh of one device it returns the one-device ``TrainStep``
   blocks of the whole leaf, as on one device: each rank updates the whole
   leaf and keeps its block.
 
-The JAX entry point's ``compress_pods`` is not taken: no caller sets it,
-and over the replicated gradient that its ``shard_map`` receives it is an
-int8 round trip of the whole gradient, not a cheaper wire.
-``distributed.compression`` holds the ported functions.
+``compress_pods=True`` (``jit_train_step`` and both steps; default False)
+is the JAX step's flag: on a mesh with a 'pod' dimension, every gradient
+leaf goes through ``distributed.compression.compressed_mean`` over the
+'pod' group once the gradient is complete (after the data-parallel sums),
+before ``global_norm`` and the update. The JAX step's ``shard_map`` receives
+the whole, replicated gradient, so each leaf is quantised with the scale of
+the JAX tree's whole leaf: the port's units of a stacked leaf share it, and
+where a rank holds a block, its max is taken over the ranks holding the
+other blocks. On a one-device mesh it is each leaf's int8 round trip, as in
+the JAX step.
 
 The loss, ``global_norm`` and the update equal the one-device step's up to
 the order of the sums over ranks.
@@ -58,11 +64,13 @@ import math
 
 import torch
 
+from repro_torch.distributed.compression import compressed_mean
 from repro_torch.distributed.sharding import (DEFAULT_RULES, Axes, DataParallel, ShardingRules,
                                               TensorParallel, _tree_pairs, axis_sizes,
                                               data_parallel, distribute, mesh_context,
                                               named_sharding, place, shard_params_tree,
                                               tensor_parallel)
+from repro_torch.models.convert import _grouped
 from .optimizer import (OptConfig, _adam_, _dequantize, _groups, _quantize, _state_leaves,
                         adamw_apply_, global_norm, opt_state_shardings, tree_leaves, tree_map)
 
@@ -78,14 +86,26 @@ def lr_schedule(step, base_lr: float, warmup: int = 100,
     return torch.where(step < warmup, warm, cos)
 
 
+def _pod_group(mesh, compress_pods: bool):
+    """The process group of ``mesh``'s 'pod' dimension when the gradient is
+    compressed over it, else None."""
+    if compress_pods and mesh is not None and "pod" in (mesh.mesh_dim_names or ()):
+        return mesh.get_group("pod")
+    return None
+
+
 class TrainStep:
     """``model``'s train step under ``opt_cfg`` and the schedule of
-    ``total_steps``. Call it for the metrics, then ``apply`` them."""
+    ``total_steps``. Call it for the metrics, then ``apply`` them.
+    ``compress_pods`` over ``mesh``'s 'pod' dimension: see the module
+    docstring."""
 
-    def __init__(self, model, opt_cfg: OptConfig = OptConfig(), total_steps: int = 10_000):
+    def __init__(self, model, opt_cfg: OptConfig = OptConfig(), total_steps: int = 10_000,
+                 mesh=None, compress_pods: bool = False):
         self.model = model
         self.opt_cfg = opt_cfg
         self.total_steps = total_steps
+        self.pod_group = _pod_group(mesh, compress_pods)
 
     def __call__(self, opt_state: dict, batch: dict, step) -> dict:
         """``model.loss(batch)`` and its grads, left on the parameters (those
@@ -95,9 +115,34 @@ class TrainStep:
         model.zero_grad(set_to_none=True)
         loss = model.loss(batch)
         loss.backward()
+        if self.pod_group is not None:
+            self._compress_pods_()
         gnorm = global_norm(tree_leaves(self._grads()))
         lr = lr_schedule(step, self.opt_cfg.lr, total=self.total_steps, device=model.device)
         return {"loss": loss.detach(), "gnorm": gnorm, "lr": lr}
+
+    def _compress_pods_(self) -> None:
+        """Each gradient leaf through ``compressed_mean`` over the 'pod'
+        group, in place, at the scale of the JAX tree's leaf: the max over
+        the units that it stacks into one leaf (and, sharded, over the ranks
+        holding its other blocks). A leaf the loss does not reach keeps no
+        gradient: the round trip of its zero gradient is zero."""
+        with torch.no_grad():
+            for _, leaves in _grouped(self.model.tree()).values():
+                blocks = [self._block(p.grad) for p in leaves if p.grad is not None]
+                if not blocks:
+                    continue
+                amax = self._leaf_max(torch.stack([b.float().abs().max() for b in blocks]).max())
+                for b in blocks:
+                    b.copy_(compressed_mean(b, self.pod_group, scale=amax / 127.0 + 1e-12)[0])
+
+    def _block(self, g: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the gradient ``g``, which it may write."""
+        return g
+
+    def _leaf_max(self, m: torch.Tensor) -> torch.Tensor:
+        """The max of a leaf from this rank's max of its blocks."""
+        return m
 
     def _grads(self):
         # a parameter the loss does not reach has a zero gradient, as in JAX
@@ -237,8 +282,9 @@ class ShardedTrainStep(TrainStep):
     ``TrainStep``."""
 
     def __init__(self, model, mesh, rules: ShardingRules = DEFAULT_RULES,
-                 opt_cfg: OptConfig = OptConfig(), total_steps: int = 10_000):
-        super().__init__(model, opt_cfg, total_steps)
+                 opt_cfg: OptConfig = OptConfig(), total_steps: int = 10_000,
+                 compress_pods: bool = False):
+        super().__init__(model, opt_cfg, total_steps, mesh, compress_pods)
         self.mesh, self.rules = mesh, rules
         axes = model_axes(model)
         tree = model.tree()
@@ -291,9 +337,23 @@ class ShardedTrainStep(TrainStep):
         with data_parallel(self.dp), tensor_parallel(self.tp), mesh_context(self.mesh, self.rules):
             loss = model.loss(local)
             loss.backward()
+        if self.pod_group is not None:
+            self._compress_pods_()
         gnorm = self._global_norm(self._grads())
         lr = lr_schedule(step, self.opt_cfg.lr, total=self.total_steps, device=loss.device)
         return {"loss": loss.detach(), "gnorm": gnorm, "lr": lr}
+
+    def _block(self, g):
+        """The local block of a DTensor gradient; one sharded over 'pod' has
+        no JAX counterpart (the JAX step's gradient is whole) and raises."""
+        if not dict(zip(self.mesh.mesh_dim_names, g.placements))["pod"].is_replicate():
+            raise ValueError(f"compress_pods: a gradient placed {g.placements} on "
+                             f"{self.mesh.mesh_dim_names}; it must be replicated over 'pod'")
+        return g.to_local()
+
+    def _leaf_max(self, m: torch.Tensor) -> torch.Tensor:
+        # over every rank of the mesh: a rank holding a replica adds nothing
+        return DataParallel(self.mesh, self.mesh.mesh_dim_names).all_reduce(m, "max")
 
     def _global_norm(self, grads) -> torch.Tensor:
         """sqrt of the sum of squares of every leaf, each rank summing its
@@ -395,15 +455,17 @@ class ShardedTrainStep(TrainStep):
 
 
 def jit_train_step(model, mesh, rules: ShardingRules = DEFAULT_RULES,
-                   opt_cfg: OptConfig = OptConfig(), total_steps: int = 10_000):
+                   opt_cfg: OptConfig = OptConfig(), total_steps: int = 10_000,
+                   compress_pods: bool = False):
     """The JAX entry point's counterpart: (step, (param_shardings,
     opt_shardings, the model's tree, its Axes tree)). On a mesh of more
     than one device the step is a ``ShardedTrainStep`` and the shardings
     are over the port's per-unit leaves (what the step, ``init_state`` and a
     checkpoint's restore place); on one device (or ``mesh=None``) it is
-    ``TrainStep`` and the shardings are None."""
+    ``TrainStep`` and the shardings are None. ``compress_pods``: the
+    gradient through the int8 mean over 'pod' (module docstring)."""
     if mesh is None or math.prod(axis_sizes(mesh).values()) == 1:
-        step = TrainStep(model, opt_cfg, total_steps)
+        step = TrainStep(model, opt_cfg, total_steps, mesh, compress_pods)
         return step, (None, None, model.tree(), model_axes(model))
-    step = ShardedTrainStep(model, mesh, rules, opt_cfg, total_steps)
+    step = ShardedTrainStep(model, mesh, rules, opt_cfg, total_steps, compress_pods)
     return step, (step.param_shardings, step.opt_shardings, model.tree(), model_axes(model))

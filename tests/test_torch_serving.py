@@ -219,8 +219,8 @@ def test_public_surface_exports():
         assert name in mining.__all__
         assert getattr(mining, name) is not None
     assert mining.MiningService is MiningService
-    # the JAX surface, less the networkx oracles (``reference``)
-    assert set(jmining.__all__) - set(mining.__all__) == {"reference"}
+    # the whole JAX surface, the brute-force oracles (``reference``) included
+    assert set(jmining.__all__) - set(mining.__all__) == set()
     assert mining._APPS_REEXPORTS == jmining._APPS_REEXPORTS
     assert list(mining.FOUR_MOTIFS) == list(jmining.FOUR_MOTIFS)
 
