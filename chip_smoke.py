@@ -2332,7 +2332,8 @@ def phase_telemetry(graphs: dict, card: str) -> None:
     keys = tuple(TELEMETRY["session_counters"])
     by_cat: dict = {}
     for sp in tel.tracer.spans():
-        by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
+        if sp.cat != "host":    # the port's host spans: no JAX counterpart
+            by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
     got = {"span_counts": dict(sorted(by_cat.items())),
            "runner_stats": dict(sorted(rs.items())),
            "session_counters": {k: sess[k] for k in keys},
@@ -2441,7 +2442,8 @@ def _shard_gate(g, names, card: str, on_mesh: _PathLaunches) -> None:
     fam = reg.series("shard_feed_items")
     by_cat: dict = {}
     for sp in tel.tracer.spans():
-        by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
+        if sp.cat != "host":    # the port's host spans: no JAX counterpart
+            by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
     tgot = {"span_counts": dict(sorted(by_cat.items())),
             "runner_stats": dict(sorted(rs.items())),
             "session_counters": {k: sess[k] for k in keys},

@@ -83,9 +83,9 @@ print("retraces on repeat :", mw.stats["rebuilds"] - before)
 
 # --- observability: trace a query, see where its time went ----------------
 # a Telemetry(enabled=True) session records a span tree per query (query ->
-# compile/schedule/execute -> per-level -> per-dispatch, host wall time
-# around each dispatch, ended by a synchronize on a card); counters live in
-# the same registry the stats dicts above are views of. write_trace()
+# compile/schedule/execute -> per-level -> per-dispatch, and the host spans
+# launch/sync/slice/upload; host wall time, no synchronize added); counters
+# live in the same registry the stats dicts above are views of. write_trace()
 # exports Chrome-trace JSON for ui.perfetto.dev (as `launch/mine.py --trace`).
 from repro_torch.obs import Telemetry
 
@@ -94,7 +94,7 @@ mt = Miner(g, telemetry=tel, device=dev)
 mt.count("4-clique")
 q = tel.tracer.last("query")
 print("traced query       :", f"{q.seconds * 1e3:.1f}ms,",
-      sum(1 for _ in q.walk()), "spans,",
+      sum(1 for s in q.walk() if s.cat != "host"), "spans,",   # as the JAX tracer's
       len(q.find("dispatch")), "dispatches")
 top = sorted(tel.tracer.level_seconds().items(),
              key=lambda kv: -kv[1])[:3]

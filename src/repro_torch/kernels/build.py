@@ -10,6 +10,10 @@ is kept beside each library. ``launch`` calls one kernel's C entry point on
 a device's current stream; the entry point's ctypes function is resolved and
 typed once, and the stream is read without a device switch when the device
 is already current (the host cost of a call is most of a small launch).
+Inside a session's query (``repro_torch.obs.active()``) each launch counts
+in the session's ``kernel_launches{symbol=...}`` and, with its tracer on,
+sits in a ``launch`` span (category ``host``, attribute ``symbol``) that
+holds the ctypes call, the stream lookup included.
 
 Nothing here runs at import: the tests import every module on machines
 with no CUDA toolkit.
@@ -25,6 +29,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.obs import active
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -111,7 +117,19 @@ def launch(name: str, symbol: str, device: torch.device, tensors, ints) -> None:
     """Launch ``symbol`` of ``csrc/<name>.cu`` on ``device``'s current stream:
     ``symbol(*tensor pointers (None -> NULL), *ints, stream)``; raise on the
     CUDA error code it returns. A device other than the current one is made
-    current for the launch (the kernel launches on the current device)."""
+    current for the launch (the kernel launches on the current device).
+    Counted, and spanned when tracing, on the active session's telemetry."""
+    tel = active()
+    if tel is not None:
+        tel.launched(symbol)
+        if tel.tracer.enabled:
+            with tel.tracer.span("launch", cat="host", symbol=symbol):
+                _launch(name, symbol, device, tensors, ints)
+            return
+    _launch(name, symbol, device, tensors, ints)
+
+
+def _launch(name: str, symbol: str, device: torch.device, tensors, ints) -> None:
     fn = _FUNCTIONS.get((name, symbol)) or _function(name, symbol, len(tensors),
                                                      len(ints))
     ptrs = [None if t is None else t.data_ptr() for t in tensors]

@@ -27,9 +27,14 @@ exhaustive check (``mining.exhaustive``; exponential, small graphs only).
 
 Session flags (``launch.cli.add_session_args``, read by
 ``MinerConfig.from_args``): ``--chunk``; ``--trace OUT.json`` turns span
-tracing on and writes the run's span tree as Chrome-trace JSON (the top
-self-times printed); ``--session-stats`` prints the cache counters and the
-metrics registry; ``--shards N`` mines over an N-way mesh (the first N
+tracing on and writes the run's span tree as Chrome-trace JSON, its ``ts``
+on ``torch.profiler``'s clock (with ``--torch-profile LOGDIR`` too, after
+that trace's ``baseTimeNanoseconds``, so the two files' events merge into
+one Perfetto timeline), and prints the spans' host self time by span name
+(the level spans' own Python, ``dispatch``'s torch ops, ``launch``,
+``sync``, ``slice``, ``upload``), the top six; ``--session-stats`` prints
+the cache counters and the metrics registry; ``--shards N`` mines over an
+N-way mesh (the first N
 cards, or N times the CPU with ``--device cpu``; ``Miner(mesh_devices=)``
 puts several shards on one card) and ``--session-stats`` then prints the
 per-shard feed items and the cross-shard reductions. ``--partitions N``
@@ -41,7 +46,9 @@ CUDA activity on a card) and writes its Chrome trace to LOGDIR/trace.json.
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -173,10 +180,14 @@ def main(argv=None):
     print(f"[mine] {args.app} = {res}  ({dt:.2f}s on {args.device}, "
           f"runner {miner.stats['runner']})")
     if args.trace:
-        path = telemetry.write_trace(args.trace)
+        base = 0
+        if args.torch_profile:      # the profile's frame: one timeline
+            prof = json.loads((Path(args.torch_profile) / "trace.json").read_text())
+            base = int(prof.get("baseTimeNanoseconds", 0))
+        path = telemetry.write_trace(args.trace, base_ns=base)
         top = sorted(telemetry.tracer.level_seconds().items(), key=lambda kv: -kv[1])[:6]
         print(f"[mine] trace: {sum(1 for _ in telemetry.tracer.spans())} spans -> "
-              f"{path}; self-time " + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in top))
+              f"{path}; host self-time " + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in top))
     if args.check and args.app in ("F3M", "F4M"):
         indep = run_app(args.app, miner, fused=False)
         if indep != res:

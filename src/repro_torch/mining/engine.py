@@ -74,11 +74,20 @@ oracle give the same rows in the same order.
 
 Every level call goes through ``WaveRunner._dispatch``. With the session's
 tracer on it opens a ``dispatch`` span (op kind and level, items,
-capacities, executable-cache hit) and ends it with a synchronize on a card,
-so the span holds the call's device time; ``run`` and ``run_set`` open the
-``execute``, ``feed``, per-level ``L{l}:{kind}`` and ``finalize`` spans
-around it. With the tracer off (the default) no span is opened and nothing
-synchronizes.
+capacities, executable-cache hit) around the level body's torch ops and
+launches; ``run`` and ``run_set`` open the ``execute``, ``feed``, per-level
+``L{l}:{kind}`` and ``finalize`` spans around it, and the ``host`` spans
+name the rest of the loop: ``launch`` (``kernels/build.py``), ``sync`` (a
+host read that waits on the card: a level's meta, a residual pack's total,
+an emit's rows, the partials), ``slice`` (the torch ops that cut the next
+wave's chunk) and ``upload`` (``_upload``: pin and H2D copy). No span
+synchronizes: every span is host time, the card's time is the device
+trace's, and a level span's self time is the engine's own Python (cache
+lookup, arguments, counters). With the tracer off (the default) no span is
+opened and no span name or attribute is built. ``run`` and ``run_set`` make
+the session's telemetry ``obs.active()`` for the kernels' launch counter
+(``kernel_launches{symbol=...}``); ``_upload`` counts the bytes it sends to
+a card in ``feed_h2d_bytes``.
 
 The module-level waves (``edge_wave``, ``expand_count``, ``expand``,
 ``pair_wave``, ``wave_chunks``) are the one-shot forms the host oracle
@@ -91,7 +100,7 @@ and runs it.
 from __future__ import annotations
 
 import dataclasses
-from contextlib import nullcontext
+import functools
 from typing import Callable
 
 import numpy as np
@@ -106,7 +115,7 @@ from repro_torch.kernels.ops import (xinter, xinter_compact_csr, xinter_count,
                                      xlevel_compact, xlevel_compact_csr, xlevel_count,
                                      xlevel_count_csr, xmark_csr, xsub_compact_csr,
                                      xsub_count_csr)
-from repro_torch.obs import LegacyStatsView, Telemetry
+from repro_torch.obs import NO_SPAN, LegacyStatsView, Telemetry, activate
 from repro_torch.values import edge_value_lookup, prefix_scale
 
 from .plan import (TAILED_TRIANGLE, THREE_CHAIN_INDUCED, LevelOp, WavePlan, clique_pattern,
@@ -186,6 +195,18 @@ def _live(n) -> int:
     """A chunk's live items: ``n``, or the sum of a sharded chunk's
     per-shard counts (``mining.shard``)."""
     return n if isinstance(n, int) else int(np.sum(n))
+
+
+@functools.cache
+def _level_name(level: int, kind: str) -> str:
+    """A level span's name, ``L{level}:{kind}``: one string a level."""
+    return f"L{level}:{kind}"
+
+
+@functools.cache
+def _caps_name(caps_sig: tuple) -> str:
+    """A dispatch span's ``caps`` attribute: formatted once a signature."""
+    return str(tuple(caps_sig))
 
 
 def _one_ahead(items):
@@ -372,7 +393,7 @@ class WaveRunner:
       and reduced on the host;
     * **the sharded runner's seam**: ``mining.shard.ShardedWaveRunner``
       runs the same level bodies once per shard by overriding ``_wrap``
-      (which makes each executable), ``_sync``, the feed, the meta and emit
+      (which makes each executable), the feed, the meta and emit
       reads (``_expand_device``, ``_plan_emit``), ``_pack_total`` and
       ``_chunk_steps``, under its own ``_exec_prefix``.
 
@@ -421,6 +442,8 @@ class WaveRunner:
                     for k in self._STAT_KEYS}
         self._h_wave_items = self.metrics.histogram("wave_items")
         self._ct_feed_chunks = self.metrics.counter("feed_chunks")
+        # bytes ``_upload`` sent to a card (the feed's, and the host path's waves)
+        self._ct_h2d_bytes = self.metrics.counter("feed_h2d_bytes")
         # aggregate-leaf calls: each rides the leaf's one membership launch,
         # so this counts value lanes, not extra launches
         self._ct_value_lanes = self.metrics.counter("value_lane_dispatches")
@@ -476,9 +499,9 @@ class WaveRunner:
                   caps_sig: tuple = (), host: bool = False):
         """Run one level executable. With tracing on, the call sits in a
         ``dispatch`` span (op kind and level, membership launches, items,
-        capacity signature, executable-cache hit) that ends in a
-        synchronize on a card, so the span holds the call's device time.
-        With tracing off: the bare call, no span and no synchronize."""
+        capacity signature, executable-cache hit): the host's time to issue
+        the level body's torch ops and launches, not the card's. With
+        tracing off: the bare call."""
         tr = self.telemetry.tracer
         if not tr.enabled:
             return fn(*args)
@@ -490,18 +513,11 @@ class WaveRunner:
         if items is not None:
             attrs["items"] = _live(items)
         if caps_sig:
-            attrs["caps"] = str(tuple(caps_sig))
+            attrs["caps"] = _caps_name(caps_sig)
         if host:
             attrs["host"] = True
         with tr.span("dispatch", cat="dispatch", **attrs):
-            out = fn(*args)
-            self._sync()
-        return out
-
-    def _sync(self) -> None:
-        """Wait for the runner's card (nothing to wait for on the CPU)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            return fn(*args)
 
     def _wrap(self, key: tuple, build: Callable) -> Callable:
         """The build function of the executable under ``key`` (its kind first:
@@ -511,25 +527,44 @@ class WaveRunner:
         return build
 
     def _span(self, name: str, **attrs):
-        """A span of the session's tracer; a no-op context with tracing off."""
+        """A span of the session's tracer; a no-op context with tracing off.
+        For spans whose attributes cost nothing to build."""
         tr = self.telemetry.tracer
-        return tr.span(name, **attrs) if tr.enabled else nullcontext()
+        return tr.span(name, **attrs) if tr.enabled else NO_SPAN
+
+    def _host_span(self, name: str):
+        """A ``host`` span (``sync``, ``slice``, ``upload``)."""
+        tr = self.telemetry.tracer
+        return tr.span(name, cat="host") if tr.enabled else NO_SPAN
 
     def _level_span(self, op: LevelOp, n: int):
         """The span of one op's processing of one wave chunk (its children's
-        levels nest inside)."""
-        return self._span(f"L{op.level}:{op.kind}", cat="level", level=op.level,
-                          kind=op.kind, items=_live(n))
+        levels nest inside); name and attributes built only when tracing."""
+        tr = self.telemetry.tracer
+        if not tr.enabled:
+            return NO_SPAN
+        return tr.span(_level_name(op.level, op.kind), cat="level", level=op.level,
+                       kind=op.kind, items=_live(n))
+
+    def _feed_span(self, cap0: int, n):
+        """The span of one level-1 feed chunk; built only when tracing."""
+        tr = self.telemetry.tracer
+        if not tr.enabled:
+            return NO_SPAN
+        return tr.span("feed", cat="level", cap=cap0, items=_live(n))
 
     # ------------------------------------------------------------ feed
     def _upload(self, x: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
         """Host array -> ``device`` (the runner's by default), from pinned
-        memory without blocking the host when the device is a card."""
+        memory without blocking the host when the device is a card; the
+        bytes sent to a card count in ``feed_h2d_bytes``."""
         device = device or self.device
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
+        with self._host_span("upload"):
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            if device.type == "cuda":
+                self._ct_h2d_bytes.value += t.nbytes
+                t = t.pin_memory()
+            return t.to(device, non_blocking=True)
 
     def _edge_feed(self, symmetric: bool = True):
         """Double-buffered level-1 feed: (cap, dv0, dv1, v1_host, n).
@@ -965,20 +1000,21 @@ class WaveRunner:
         dev = [p for p in parts if isinstance(p, torch.Tensor)]
         total = sum(p for p in parts if not isinstance(p, torch.Tensor))
         if dev:
-            total += int(torch.stack(dev).sum())
+            with self._host_span("sync"):
+                total += int(torch.stack(dev).sum())
         if total % plan.div:
             raise RuntimeError(f"{plan.pattern.name}: total {total} is not a "
                                f"multiple of div {plan.div}")
         return total // plan.div
 
-    @staticmethod
-    def _finalize_agg(agg: str, parts: list) -> float:
+    def _finalize_agg(self, agg: str, parts: list) -> float:
         """Reduce the f32 (value, live) pairs in float64 on the host, in
         chunk order, as the reference engine does; 0.0 when no embedding
         is live (a weighted query over zero embeddings aggregates to 0.0)."""
         if not parts:
             return 0.0
-        pairs = torch.stack(parts).cpu().numpy().astype(np.float64)
+        with self._host_span("sync"):
+            pairs = torch.stack(parts).cpu().numpy().astype(np.float64)
         value, live = None, 0.0
         for x, n in pairs.tolist():
             live += n
@@ -1004,10 +1040,10 @@ class WaveRunner:
         (N, k) int32 embedding matrix."""
         need1 = 1 in plan.ops[0].row_refs()
         outs: list = []
-        with self._span("execute", plan=plan.pattern.name):
+        with activate(self.telemetry), self._span("execute", plan=plan.pattern.name):
             for cap0, dv0, dv1, v1h, n in self._edge_feed(plan.symmetric):
                 self._ct_feed_chunks.inc()
-                with self._span("feed", cat="level", cap=cap0, items=_live(n)):
+                with self._feed_span(cap0, n):
                     self._record_feed(cap0, dv0, dv1, n)
                     outs += self._plan_descend(plan, 0, {0: dv0, 1: dv1},
                                                self._feed_caps(cap0, need1, v1h), None, n)
@@ -1023,7 +1059,8 @@ class WaveRunner:
         ``forest.plans`` order, equal to running each plan through ``run``
         (ints, floats, or (N, k) int32 matrices for emit plans)."""
         acc: list[list] = [[] for _ in forest.plans]
-        with self._span("execute", plans=len(forest.plans), forest=True):
+        with activate(self.telemetry), \
+                self._span("execute", plans=len(forest.plans), forest=True):
             for symmetric, roots in ((True, forest.symmetric_roots),
                                      (False, forest.directed_roots)):
                 if not roots:
@@ -1031,7 +1068,7 @@ class WaveRunner:
                 need1 = any(1 in r.op.row_refs() for r in roots)
                 for cap0, dv0, dv1, v1h, n in self._edge_feed(symmetric):
                     self._ct_feed_chunks.inc()
-                    with self._span("feed", cat="level", cap=cap0, items=_live(n)):
+                    with self._feed_span(cap0, n):
                         self._record_feed(cap0, dv0, dv1, n)
                         caps = self._feed_caps(cap0, need1, v1h)
                         for root in roots:
@@ -1127,7 +1164,8 @@ class WaveRunner:
             pfn, refs = self._residual_pack_fn(op.level, ch.op.residual,
                                                int(src.shape[0]))
             src_b, verts_b, tot_b = pfn(tuple(cols[c] for c in refs), src, verts2, total)
-            tot_b, has_b = self._pack_total(tot_b)
+            with self._host_span("sync"):
+                tot_b, has_b = self._pack_total(tot_b)
             self._ct["host_syncs"].inc()
             if has_b:
                 feeds.append(([ch], src_b, verts_b, tot_b))
@@ -1174,17 +1212,21 @@ class WaveRunner:
             fn = self._plan_emit_fn(op, caps_sig, cap_base, out_cap, out_items)
             emb, total = self._dispatch(op, fn, (self.g, vals, carry, n), items=n,
                                         caps_sig=caps_sig)
-            total = int(total)
+            with self._host_span("sync"):
+                total = int(total)
             self._ct["device_compactions"].inc()
             self._ct["items"].inc(total)
             self._h_wave_items.observe(total)
             if total == 0:
                 return []
-            return [_host(emb[:total])]
+            with self._host_span("sync"):
+                return [_host(emb[:total])]
         hfn = self._plan_expand_host_fn(op, caps_sig, cap_base, out_cap)
         rows2, counts2 = self._dispatch(op, hfn, (self.g, vals, carry, n), items=n,
                                         caps_sig=caps_sig, host=True)
-        wave, ii = compact(_host(rows2), _host(counts2), return_src=True)
+        with self._host_span("sync"):
+            rows_h, counts_h = _host(rows2), _host(counts2)
+        wave, ii = compact(rows_h, counts_h, return_src=True)
         self._ct["host_compactions"].inc()
         if wave is None:
             return []
@@ -1208,7 +1250,8 @@ class WaveRunner:
         fn = self._plan_expand_fn(op, caps_sig, cap_base, out_cap, out_items)
         rows2, src, verts2, meta = self._dispatch(op, fn, (self.g, vals, carry, n),
                                                   items=n, caps_sig=caps_sig)
-        total, maxc, *dmaxs = meta.tolist()       # the level's one host sync
+        with self._host_span("sync"):
+            total, maxc, *dmaxs = meta.tolist()       # the level's one host sync
         self._ct["host_syncs"].inc()
         self._ct["device_compactions"].inc()
         self._ct["items"].inc(total)
@@ -1232,7 +1275,8 @@ class WaveRunner:
         fwd = [c for c in op.out_cols if c < op.level]
         fwdvals = tuple(cols[c] for c in fwd)
         for lo, m in self._chunk_steps(total):
-            outs, vch, carry2 = cfn(rows2, src, verts2, fwdvals, lo, m)
+            with self._host_span("slice"):
+                outs, vch, carry2 = cfn(rows2, src, verts2, fwdvals, lo, m)
             cols2 = dict(zip(fwd, outs))
             if op.level in op.out_cols:
                 cols2[op.level] = vch
@@ -1262,7 +1306,8 @@ class WaveRunner:
         hfn = self._plan_expand_host_fn(op, caps_sig, cap_base, out_cap)
         rows2, counts2 = self._dispatch(op, hfn, (self.g, vals, carry, n), items=n,
                                         caps_sig=caps_sig, host=True)
-        rows_h, counts_h = _host(rows2), _host(counts2)     # the level's host sync
+        with self._host_span("sync"):
+            rows_h, counts_h = _host(rows2), _host(counts2)     # the level's host sync
         if ride_out is not None:
             ride_out["count_part"] = int(counts_h.sum(dtype=np.int64))
         wave, ii = compact(rows_h, counts_h, return_src=True)

@@ -43,10 +43,14 @@ carries the value lane (``engine.WaveRunner._agg_body``).
 ``telemetry=Telemetry(enabled=True)`` (or ``MinerConfig.from_args`` of a
 launcher's ``--trace``), records a span tree per query: ``query`` →
 ``compile``/``schedule``/``execute`` → ``feed`` and ``L{l}:{kind}`` level
-spans → ``dispatch`` spans around each level call, ended by a synchronize
-on a card. ``telemetry.write_trace(path)`` writes it as Chrome-trace JSON.
-The tracer is no part of any cache key, and with it off the engine opens
-no span and adds no synchronize and no launch.
+spans → ``dispatch`` spans around each level call, with the ``host`` spans
+``launch``, ``sync``, ``slice`` and ``upload`` where the host launches a
+kernel, waits on the card, cuts the next wave and uploads the feed
+(``engine`` module docstring). No span synchronizes: a span is host time,
+on ``torch.profiler``'s clock by ``tracer.clock_offset_ns``.
+``telemetry.write_trace(path)`` writes it as Chrome-trace JSON. The tracer
+is no part of any cache key, and with it off the engine opens no span and
+adds no synchronize and no launch.
 ``with miner.telemetry.torch_profile(logdir, miner.config.device): ...``
 wraps a query in ``torch.profiler`` (its kernels' device events on a card)
 and writes the profile's Chrome trace to ``logdir`` (the JAX package's
@@ -70,7 +74,6 @@ single-threaded.
 from __future__ import annotations
 
 import dataclasses
-from contextlib import nullcontext
 from typing import Callable, Sequence
 
 import numpy as np
@@ -78,7 +81,7 @@ import torch
 
 from repro_torch.distributed.sharding import make_mining_mesh
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.obs import LegacyStatsView, Telemetry
+from repro_torch.obs import NO_SPAN, LegacyStatsView, Telemetry
 
 from .engine import WaveRunner
 from .forest import PlanForest, build_forest, schedule_patterns
@@ -229,7 +232,7 @@ class Miner:
     def _span(self, name: str, **attrs):
         """A span of the session's tracer; a no-op context with tracing off."""
         tr = self.telemetry.tracer
-        return tr.span(name, **attrs) if tr.enabled else nullcontext()
+        return tr.span(name, **attrs) if tr.enabled else NO_SPAN
 
     def compile(self, query, emit: bool = False,
                 aggregate: str | None = None) -> WavePlan:

@@ -33,9 +33,9 @@ The host orchestration (plan descent, forest fan-out, residual packs) is
 the unsharded runner's: the per-shard state it tracks is the live-total
 vector (``_pack_total``, ``_chunk_steps``). Counts are bit-identical to
 the unsharded session's, the same integer summands grouped otherwise.
-A level step is one dispatch (one traced ``dispatch`` span, ending in a
-synchronize of every distinct card) whatever the number of shards; each
-shard's kernels launch asynchronously on its own device.
+A level step is one dispatch (one traced ``dispatch`` span, which does not
+synchronize) whatever the number of shards; each shard's kernels launch
+asynchronously on its own device.
 
 The level-1 feed is dealt by ``shard_edge_steps``: per degree bucket,
 edges are dealt round robin across shards (CSR order groups a hub's edges,
@@ -143,8 +143,8 @@ class ShardedWaveRunner(WaveRunner):
     """``WaveRunner`` with every level body run once per shard of ``mesh``.
 
     See the module docstring for the contract. Only the executable hook
-    (``_wrap``), the feed, the meta and emit reads, the chunk steps and the
-    synchronize differ from the base interpreter; the level bodies are
+    (``_wrap``), the feed, the meta and emit reads and the chunk steps
+    differ from the base interpreter; the level bodies are
     shared, so the two runners cannot drift apart.
     """
 
@@ -172,7 +172,6 @@ class ShardedWaveRunner(WaveRunner):
         self.axis = axis
         self.feed_partition = feed_partition
         self._shards = len(mesh.devices)
-        self._cards = tuple(d for d in copies if d.type == "cuda")
         self._exec_prefix = ("mesh", axis, self._shards)
         # the cross-shard reduction counter joins the legacy view; the
         # per-shard feed items are a labelled series whose legacy key is
@@ -224,10 +223,6 @@ class ShardedWaveRunner(WaveRunner):
             return blocks
         return built
 
-    def _sync(self) -> None:
-        for d in self._cards:
-            torch.cuda.synchronize(d)
-
     def _bump(self, op, host: bool = False) -> None:
         super()._bump(op, host)
         if op.kind == "count":
@@ -269,7 +264,8 @@ class ShardedWaveRunner(WaveRunner):
         fn = self._plan_expand_fn(op, caps_sig, cap_base, out_cap, out_items)
         rows2, src, verts2, meta = self._dispatch(op, fn, (self.g, vals, carry, n),
                                                   items=n, caps_sig=caps_sig)
-        meta = np.array(meta.tolist(), dtype=np.int64)      # (shards, m)
+        with self._host_span("sync"):
+            meta = np.array(meta.tolist(), dtype=np.int64)      # (shards, m)
         totals = meta[:, 0]
         total = int(totals.sum())
         self._ct["host_syncs"].inc()
@@ -291,11 +287,13 @@ class ShardedWaveRunner(WaveRunner):
         fn = self._plan_emit_fn(op, caps_sig, cap_base, out_cap, out_items)
         emb, totals = self._dispatch(op, fn, (self.g, vals, carry, n), items=n,
                                      caps_sig=caps_sig)
-        totals = totals.tolist()
+        with self._host_span("sync"):
+            totals = totals.tolist()
         total = sum(totals)
         self._ct["device_compactions"].inc()
         self._ct["items"].inc(total)
         self._h_wave_items.observe(total)
         if total == 0:
             return []
-        return [np.concatenate([_host(e[:t]) for e, t in zip(emb, totals) if t])]
+        with self._host_span("sync"):
+            return [np.concatenate([_host(e[:t]) for e, t in zip(emb, totals) if t])]

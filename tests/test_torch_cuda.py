@@ -731,8 +731,9 @@ def test_fsm_and_its_feed_on_card_equal_cpu(cuda):
 
 
 def test_traced_dispatch_synchronizes_on_card_only_when_tracing(cuda, monkeypatch):
-    """Tracing on: one synchronize per dispatch span; off: none, and the
-    same kernel launches either way."""
+    """No ``torch.cuda.synchronize`` traced or not (a dispatch span is host
+    time and no longer ends in one), and the same kernel launches either
+    way."""
     from repro_torch.obs import Telemetry
     g = get_dataset("email-eu-core", 0.25)
     syncs = []
@@ -750,11 +751,60 @@ def test_traced_dispatch_synchronizes_on_card_only_when_tracing(cuda, monkeypatc
         launched[traced] = (K.intersect_count.launches - n0[0],
                             K.intersect_expand.launches - n0[1],
                             K.intersect_multi.launches - n0[2], got)
-        if traced:
-            assert len(syncs) == len(tel.tracer.spans("dispatch")) > 0
-        else:
-            assert syncs == []
+        assert syncs == []
+        assert bool(tel.tracer.spans("dispatch")) is traced
     assert launched[True] == launched[False]
+
+
+def _runtime_calls(prof) -> list:
+    """(name, start ns, end ns) of the host's CUDA runtime calls in a
+    profile with CUDA activity."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() != DeviceType.CUDA]
+
+
+def test_launch_spans_hold_their_runtime_launches(cuda):
+    """On the profiler's clock (span + ``tracer.clock_offset_ns``) each
+    ``launch`` span of a traced call holds a runtime launch call of the
+    profile; the call makes as many synchronizing runtime calls traced as
+    untraced; ``kernel_launches`` counts one a launch span, the same
+    traced or not, and ``feed_h2d_bytes`` the feed's int32 (2, width)
+    chunks."""
+    from repro_torch.mining.engine import edge_chunks
+    from repro_torch.obs import Telemetry
+    act = torch.profiler.ProfilerActivity
+    g = get_dataset("email-eu-core", 0.25)
+    syncs, launches, counts = {}, {}, {}
+    for traced in (False, True):
+        tel = Telemetry(enabled=traced)
+        m = Miner(g, telemetry=tel)
+        m.count("4-clique")                  # every executable built
+        torch.cuda.synchronize()
+        tel.tracer.clear()
+        n0 = sum(c.value for c in tel.metrics.series("kernel_launches").values())
+        b0 = tel.metrics.value("feed_h2d_bytes")
+        with torch.profiler.profile(activities=[act.CUDA]) as prof:
+            counts[traced] = m.count("4-clique")
+            torch.cuda.synchronize()
+        calls = _runtime_calls(prof)
+        syncs[traced] = sum("Synchronize" in name for name, *_ in calls)
+        launches[traced] = sum(c.value for c in
+                               tel.metrics.series("kernel_launches").values()) - n0
+        feed = sum(8 * v0.shape[0] for _, v0, _, _ in
+                   edge_chunks(m.runner.host_g, m.runner.chunk, True))
+        assert tel.metrics.value("feed_h2d_bytes") - b0 == feed
+        if traced:
+            off = tel.tracer.clock_offset_ns
+            starts = sorted(s for name, s, _ in calls if "LaunchKernel" in name)
+            spans = tel.tracer.spans("launch")
+            assert len(spans) == launches[True] > 0
+            for sp in spans:
+                lo, hi = sp.t0_ns + off, sp.t1_ns + off
+                assert any(lo <= s < hi for s in starts), (sp.attrs, lo, hi)
+    assert syncs[True] == syncs[False] > 0
+    assert launches[True] == launches[False] and counts[True] == counts[False]
 
 
 SHARD_QUERIES = ("triangle", "4-clique", "three-chain", "tailed-triangle", "diamond", "paw")

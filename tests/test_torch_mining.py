@@ -300,7 +300,7 @@ def test_port_source_names_neither_jax_nor_the_jax_package():
 # copied modules and the lines each may change (original -> port)
 COPIED = {
     "graph/generators.py": {}, "mining/plan.py": {}, "mining/forest.py": {},
-    "obs/registry.py": {}, "obs/trace.py": {}, "obs/export.py": {},
+    "obs/registry.py": {},
     "launch/cli.py": {'                         "(on CPU set XLA_FLAGS="':
                       '                         "(the first N cards; N times the CPU with "',
                       '                         "--xla_force_host_platform_device_count=N)")':

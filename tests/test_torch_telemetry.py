@@ -5,7 +5,10 @@ email-eu-core 0.25 must give benchmarks/baseline.json's
 ``exact.telemetry.email-eu-core@0.25.*`` values, and the span tree of a
 query must equal the JAX package's span for span, attributes included;
 with tracing off no span opens, and the counts and counters are the
-traced run's.
+traced run's. The port's ``host`` spans (``launch``, ``sync``, ``slice``,
+``upload``: where the host launches, waits, slices and uploads) have no
+counterpart in the JAX package, and are left out of both comparisons;
+every span of the JAX package's categories is compared.
 """
 import argparse
 import json
@@ -46,7 +49,8 @@ def test_telemetry_mix_equals_baseline_json():
     keys = ("queries", "plan_hits", "plan_misses", "schedule_hits", "schedule_misses")
     by_cat: dict = {}
     for sp in tel.tracer.spans():
-        by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
+        if sp.cat != "host":
+            by_cat[sp.cat] = by_cat.get(sp.cat, 0) + 1
     assert all(reg.value(k) == v for k, v in rs.items())
     assert all(reg.value(k) == sess[k] for k in keys)
     assert exact[f"{TAG}.registry_equals_legacy"] is True
@@ -61,8 +65,10 @@ def test_telemetry_mix_equals_baseline_json():
 
 
 def _tree(span) -> tuple:
-    """A span without its times: (name, cat, attrs, children)."""
-    return (span.name, span.cat, dict(span.attrs), [_tree(c) for c in span.children])
+    """A span without its times: (name, cat, attrs, children), the port's
+    ``host`` spans left out (no ``host`` span has children)."""
+    return (span.name, span.cat, dict(span.attrs),
+            [_tree(c) for c in span.children if c.cat != "host"])
 
 
 @pytest.mark.parametrize("device_compact", [True, False])
@@ -85,19 +91,32 @@ def test_span_trees_equal_jax(device_compact):
     assert len(got) == 5 and sum(1 for _ in tel.tracer.spans("dispatch")) > 5
 
 
-def test_disabled_tracer_opens_no_span(monkeypatch):
-    """Tracing off: no span is opened, and the rows and counters equal the
-    traced session's."""
+def _off_mix(miner) -> tuple:
+    """Every site that opens a span when tracing: emit, a count, a forest
+    with a residual pack and a riding leaf, and a weighted leaf."""
+    return (miner.embeddings("4-cycle"), miner.count("paw"),
+            miner.count_many(["4-clique", "diamond", "4-cycle", "paw", "4-path"]))
+
+
+@pytest.mark.parametrize("device_compact", [True, False])
+def test_disabled_tracer_opens_no_span(monkeypatch, device_compact):
+    """Tracing off: no span is opened or built at any site (the engine's
+    ``upload``, ``sync`` and ``slice`` among them; the host path's uploads
+    and reads too), and the rows and counters equal the traced session's."""
     g = get_dataset("email-eu-core", 0.25)
-    traced = Miner(g, device="cpu", telemetry=Telemetry(enabled=True))
-    want = (traced.embeddings("4-cycle"), traced.count("paw"))
+    traced = Miner(g, device="cpu", telemetry=Telemetry(enabled=True),
+                   device_compact=device_compact)
+    want = _off_mix(traced)
+    host = {sp.name for sp in traced.telemetry.tracer.spans() if sp.cat == "host"}
+    assert host == {"upload", "sync"} | ({"slice"} if device_compact else set())
     opened = []
     monkeypatch.setattr(Tracer, "span", lambda self, *a, **k: opened.append(a))
-    plain = Miner(g, device="cpu")
-    got = (plain.embeddings("4-cycle"), plain.count("paw"))
-    assert opened == []
+    plain = Miner(g, device="cpu", device_compact=device_compact)
+    got = _off_mix(plain)
+    assert opened == [] and plain.telemetry.tracer.finished == []
     np.testing.assert_array_equal(got[0], want[0])
-    assert got[1] == want[1] and plain.stats == traced.stats
+    assert got[1:] == want[1:] and plain.stats == traced.stats
+    assert dict(plain.runner.stats) == dict(traced.runner.stats)
 
 
 def test_miner_config_from_args():
