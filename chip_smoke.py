@@ -27,7 +27,9 @@ exception exits non-zero:
               email-core's spmm block; compact-rows over keep
               densities, cut rows, dead rows, SENTINEL slots and views at a
               storage offset, and both its teams swept over caps; the
-              bitmap count over random words), bit for bit on dyadic
+              bitmap count over random words; the in-place count leaf, INTER
+              and SUB, over full and short chunks with dead rows, warp and
+              block caps, aligned and unaligned rows), bit for bit on dyadic
               values and within rtol 1e-6 on others; each kernel timed three
               ways (kernel_times: device ms, call ms, host us per call) and
               its plain version by CUDA events; ops.xinter against the CPU's
@@ -48,7 +50,9 @@ exception exits non-zero:
               also the closed form); each query's padded-row gathers are
               printed: none for a triangle, the cliques, three-chain-induced,
               diamond and paw, and the level-2 expand's fresh base alone for
-              4-cycle, 4-path and 4-star
+              4-cycle, 4-path and 4-star; the first in-place leaf call of each
+              shape must add what its plain version adds; then the in-place
+              leaf timed at the benchmark's mico 5C leaf shape
   6. weighted Miner.aggregate (sum, max, min) on the same graphs with
               dyadic edge weights: each value must equal the JAX package's
               (bit for bit where f32 holds every partial sum, else within
@@ -308,6 +312,12 @@ GRID_LONG = (32, 64, 2048, 2048)
 # degree bucket, and youtube's 128-row chunk at its 32768-key bucket
 PARITY_SHAPES = ((2048, 128, 128), (2048, 2048, 2048), (128, 128, 32768))
 TIMED_SHAPE = (2048, 2048, 2048)
+# (out_cap, cap_a, cap_b) of the in-place count leaf's parity: caps up to
+# 1024 run a warp a row, 2048 a block a row; out_cap 130 and 1030 start
+# rows off 16-byte boundaries; chunks of mico's padded-degree chunk
+WORKLIST_SHAPES = ((128, 128, 512), (130, 128, 1024), (1030, 1024, 2048),
+                   (2048, 2048, 128))
+WORKLIST_CHUNK = 2944
 # (B, cap_a, k, cap_b) of the k-reference kernel; the last stack (3 x 32768
 # keys) is past shared memory and takes the global-memory search. Each shape
 # runs every polarity of MULTI_POLS (k = len(pol)) bit for bit, and is timed
@@ -484,6 +494,11 @@ KERNELS = {
     # scatter in batch_compact_scan (no Pallas kernel)
     "expand_items": dict(route="cuda", source="src/repro_torch/kernels/csrc/intersect.cu",
                          replaces="src/repro/core/batch.py:104"),
+    # the carried count leaf read in place: what the JAX engine does with
+    # XLA's worklist slice and its count leaf (no Pallas kernel of its own)
+    "intersect_count_worklist": dict(route="cuda",
+                                     source="src/repro_torch/kernels/csrc/intersect.cu",
+                                     replaces="src/repro/mining/engine.py:939"),
     "intersect_mark": dict(route="cuda",
                            source="src/repro_torch/kernels/csrc/intersect.cu",
                            replaces="src/repro/kernels/intersect.py:250"),
@@ -504,16 +519,22 @@ KERNELS = {
 # intersect_multi_agg, the sparse path (6) vinter, the host path (8)
 # compact_rows and the bitmap path (9) bitmap_and_count
 COUNT_KERNELS = ("intersect_count", "intersect_expand", "expand_items", "intersect_mark",
-                 "intersect_multi")
+                 "intersect_multi", "intersect_count_worklist")
+
+
+# kernels a tree measured with --src may lack (a parent's)
+NEWER_KERNELS = ("intersect_count_worklist",)
 
 
 def wrappers() -> dict:
     """Kernel name -> its wrapper, whose ``launches`` counts kernel launches;
-    also ``vinter_grid``, the S_VINTER kernel's grid form, where the tree
-    has it (a parent measured with --src may not)."""
+    also ``vinter_grid``, the S_VINTER kernel's grid form. ``vinter_grid``
+    and NEWER_KERNELS are there where the tree has them (a parent measured
+    with --src may not)."""
     from repro_torch.kernels import bitmap, compact, intersect, svinter
     module = {"vinter": svinter, "compact_rows": compact, "bitmap_and_count": bitmap}
-    out = {name: getattr(module.get(name, intersect), name) for name in KERNELS}
+    out = {name: getattr(module.get(name, intersect), name) for name in KERNELS
+           if name not in NEWER_KERNELS or hasattr(intersect, name)}
     if hasattr(svinter, "vinter_grid"):
         out["vinter_grid"] = svinter.vinter_grid
     return out
@@ -1554,6 +1575,55 @@ def _parity_xinter(gen):
               f"to batch_inter on the CPU, bit for bit", flush=True)
 
 
+def worklist_operands(gen, parents: int, out_cap: int, cap_b: int, total: int,
+                      items: int) -> tuple:
+    """A carried count leaf's operands as its parent expand leaves them, made
+    on the card from ``gen``: (indptr, indices, rows2, src, verts2). The
+    CSR's rows run to 1.5 cap_b keys (so some are cut) and some are empty;
+    ``rows2`` (parents, out_cap) holds sorted keys, SENTINEL after each
+    row's survivors; the first ``total`` of the ``items`` worklist entries
+    are live (src sorted; every seventh vertex 0, whose bound 0 kills its
+    row), the rest (0, 0) as ``expand_items`` leaves them."""
+    nv = 2 * max(out_cap, cap_b)
+    nbrs = sorted_rows(gen, nv, cap_b + cap_b // 2, nv, empty_frac=0.1)
+    live = nbrs != SENTINEL
+    indptr = torch.zeros(nv + 1, dtype=torch.int32, device=DEVICE)
+    indptr[1:] = torch.cumsum(live.sum(1), 0)
+    indices = torch.cat([nbrs[live], torch.full((128,), SENTINEL, dtype=torch.int32,
+                                                device=DEVICE)])
+    src = torch.zeros(items, dtype=torch.int32, device=DEVICE)
+    verts2 = torch.zeros(items, dtype=torch.int32, device=DEVICE)
+    src[:total] = torch.randint(0, parents, (total,), generator=gen, device=DEVICE,
+                                dtype=torch.int32).sort().values
+    verts2[:total] = torch.randint(1, nv, (total,), generator=gen, device=DEVICE,
+                                   dtype=torch.int32)
+    verts2[:total:7] = 0
+    return indptr, indices, sorted_rows(gen, parents, out_cap, nv), src, verts2
+
+
+def _parity_worklist(K, report, gen, out_cap, cap_a, cap_b):
+    """The in-place count leaf over every chunk of a worklist (full chunks, a
+    short last one, dead rows), INTER and SUB, into one int64 from 2^31 - 5,
+    against its plain version on the same card tensors: equal."""
+    total, items = 3 * WORKLIST_CHUNK + WORKLIST_CHUNK // 3, 4 * WORKLIST_CHUNK
+    ops = worklist_operands(gen, 64, out_cap, cap_b, total, items)
+    for sub in (False, True):
+        got = torch.tensor(2**31 - 5, dtype=torch.int64, device=DEVICE)
+        want = got.clone()
+        for lo in range(0, total, WORKLIST_CHUNK):
+            m = min(WORKLIST_CHUNK, total - lo)
+            K.intersect_count_worklist(*ops, lo, m, cap_a, cap_b, got, sub)
+            K.intersect_count_worklist_ref(*ops, lo, m, cap_a, cap_b, want, sub)
+        err = abs(int(got) - int(want))
+        _record(report, "intersect_count_worklist", err)
+        label = (f"intersect_count_worklist out_cap={out_cap} caps=({cap_a},{cap_b}) "
+                 f"{'SUB' if sub else 'INTER'}")
+        if err:
+            raise SystemExit(f"[parity] MISMATCH {label}: {int(got)} != {int(want)}")
+        print(f"[parity] {label}: {int(got) - 2**31 + 5} over {total} items in chunks of "
+              f"{WORKLIST_CHUNK}, equal to the plain version", flush=True)
+
+
 def phase_parity() -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.kernels import bitmap as BM
@@ -1580,6 +1650,9 @@ def phase_parity() -> dict:
     for shape in BITMAP_SHAPES:
         _parity_bitmap(BM, report, gen, *shape)
     _parity_xinter(gen)
+    if hasattr(K, "intersect_count_worklist"):
+        for shape in WORKLIST_SHAPES:
+            _parity_worklist(K, report, gen, *shape)
     return report
 
 
@@ -1649,20 +1722,118 @@ GATHER_FREE = ("triangle", "4-clique", "5-clique", "three-chain-induced", "diamo
 LEVEL2_GATHERS = {"4-cycle": 1, "4-path": 1, "4-star": 1}
 
 
-def phase_main_path(graphs: dict):
-    """Drive the port's Miner; every count must equal the JAX package's.
-    Returns (per-query results, launches per count-path kernel)."""
-    from repro_torch import Miner
+def check_worklist_leaves(run, chunk: int):
+    """(run(), {(cap_a, cap_b, sub, m == chunk): [calls, one call's
+    arguments]}) of the engine's in-place leaf calls during ``run``, whose
+    runner slices waves of ``chunk`` items. The first call of each shape is
+    checked on the card against the plain version on the same tensors: the
+    count it adds must be the plain version's, exactly."""
+    from repro_torch.kernels import intersect as K
+    from repro_torch.mining import engine
+    shapes, saved = {}, getattr(engine, "xcount_worklist", None)
+    if saved is None:
+        return run(), shapes
 
-    kernels = tuple(wrappers()[name] for name in COUNT_KERNELS)
+    def leaf(ip, ix, rows2, src, verts2, lo, m, cap_a, cap_b, acc, sub):
+        seen = shapes.get(shape := (cap_a, cap_b, sub, m == chunk))
+        if seen:
+            seen[0] += 1
+            return saved(ip, ix, rows2, src, verts2, lo, m, cap_a, cap_b, acc, sub)
+        args = (ip, ix, rows2, src, verts2, lo, m, cap_a, cap_b)
+        want = int(K.intersect_count_worklist_ref(*args, acc.clone(), sub))
+        got = int(saved(*args, acc, sub))
+        if got != want:
+            raise SystemExit(f"[main] MISMATCH in-place leaf caps=({cap_a},{cap_b}) "
+                             f"m={m} sub={sub}: {got} != the plain version's {want}")
+        shapes[shape] = [1, args]
+        return acc
+    engine.xcount_worklist = leaf
+    try:
+        return run(), shapes
+    finally:
+        engine.xcount_worklist = saved
+
+
+def _time_worklist_leaf(report: dict) -> None:
+    """The in-place leaf's kernel at the benchmark's mico 5C leaf shape: a
+    5-clique on the benchmark's mico twin (``bench/configs/mico.json``, its
+    edges in generated order), each leaf shape checked against the plain
+    version (check_worklist_leaves), then the operands of the commonest
+    full-chunk (cap_a, cap_b) of its leaf calls: its times (one launch a
+    call, which kernel_times checks), its plain version's, and the parent's
+    sliced leaf on the same chunk (the worklist slice, the CSR count kernel,
+    the int64 sum), which must count the same. Bound: the bytes each item
+    needs, its base row's and its B row's keys below its bound (rows that
+    items share counted for each), src and verts2 once, 8 bytes written."""
+    from bench import graphs as bench_graphs
+    from repro_torch import Miner
+    from repro_torch.graph.csr import build_csr
+    from repro_torch.kernels import intersect as K
+    config = json.loads((ROOT / "bench" / "configs" / "mico.json").read_text())
+    edges, nv = bench_graphs.edges_of(config, 1.0, ROOT / "build" / "bench")
+    miner = Miner(build_csr(edges, num_vertices=nv, undirected=True), device=DEVICE)
+    chunk = miner.runner.chunk
+    got5, shapes = check_worklist_leaves(lambda: miner.count("5-clique"), chunk)
+    calls = sum(n for n, _ in shapes.values())
+    (cap_a, cap_b, sub, _), (n, args) = max(
+        ((k, v) for k, v in shapes.items() if k[3]), key=lambda kv: kv[1][0])
+    ip, ix, rows2, src, verts2, lo, m = args[:7]
+    acc = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    count_csr = K.intersect_sub_count_csr if sub else K.intersect_count_csr
+
+    def sliced():
+        s = src[lo: lo + chunk].long()
+        live = torch.arange(chunk, device=src.device) < m
+        v = torch.where(live, verts2[lo: lo + chunk], 0)
+        ub = torch.where(live, v, 0)
+        return count_csr(ip, ix, v, cap_b, a=rows2[s, :cap_a], bounds=ub).long().sum()
+    got = int(K.intersect_count_worklist(*args, torch.zeros_like(acc), sub))
+    plain = int(K.intersect_count_worklist_ref(*args, torch.zeros_like(acc), sub))
+    if not got == plain == int(sliced()):
+        raise SystemExit(f"[worklist] MISMATCH mico 5C leaf: {got}, plain {plain}, "
+                         f"sliced {int(sliced())}")
+    times = kernel_times(lambda: K.intersect_count_worklist(*args, acc, sub))
+    plain_ms = cuda_ms(lambda: K.intersect_count_worklist_ref(*args, acc.clone(), sub))
+    sliced_ms = cuda_ms(sliced)
+    v = verts2[lo: lo + m].long()
+    a_keys = int((rows2[src[lo: lo + m].long(), :cap_a] < v[:, None]).sum())
+    col = torch.arange(cap_b, device=DEVICE)
+    start, deg = ip[v].long(), (ip[v + 1] - ip[v]).long()
+    b = ix[(start[:, None] + col).clamp(max=ix.shape[0] - 1)]
+    b_keys = int(((col < deg[:, None]) & (b < v[:, None])).sum())
+    bound_ms = ((a_keys + b_keys) * 4 + m * 8 + 8) / HBM_BYTES_PER_S * 1e3
+    print(f"[worklist] bench mico twin 5-clique = {got5}; its in-place leaf, {n} of "
+          f"{calls} calls at B {m}, cap_a {cap_a}, cap_b {cap_b}, "
+          f"{'SUB' if sub else 'INTER'}: count {got} as the plain version's and the "
+          f"sliced leaf's; {_times_text(times)}, {plain_ms:.4f} ms plain, the sliced leaf "
+          f"{sliced_ms:.4f} ms a call, bound {bound_ms:.6f} ms ({a_keys} + {b_keys} keys "
+          f"below the bounds)", flush=True)
+    report["intersect_count_worklist"].update(**times, plain_ms=plain_ms,
+                                              bound_ms=bound_ms, bound_by="bytes",
+                                              sliced_ms=sliced_ms, library_ms=None)
+
+
+def phase_main_path(graphs: dict, report: dict):
+    """Drive the port's Miner; every count must equal the JAX package's, and
+    each in-place leaf shape its plain version's (check_worklist_leaves);
+    then time the in-place leaf at the benchmark's mico 5C leaf shape, after
+    the main path's launches are read. Returns (per-query results, launches
+    per count-path kernel)."""
+    from repro_torch import Miner
+    from repro_torch.mining import engine
+
+    names = [name for name in COUNT_KERNELS if name in wrappers()]
+    kernels = tuple(wrappers()[name] for name in names)
     zero_launches()
     counts = {}
     for name, scale, queries in MAIN_PATH:
         miner = Miner(graphs[name, scale], device=DEVICE)
         for query, want in queries:
             execs = dict(miner.runner.level_execs)
-            counts[name, scale, query], gathers = count_gathers(
-                lambda: _mine(miner, kernels, f"{name} x{scale}", query, want))
+            (counts[name, scale, query], gathers), _ = check_worklist_leaves(
+                lambda: count_gathers(
+                    lambda: _mine(miner, kernels, f"{name} x{scale}", query, want)),
+                miner.runner.chunk)
             level2 = miner.runner.level_execs.get(("expand", 2), 0) \
                 - execs.get(("expand", 2), 0)
             expect = 0 if query in GATHER_FREE else LEVEL2_GATHERS.get(query)
@@ -1689,7 +1860,7 @@ def phase_main_path(graphs: dict):
     _, launched, st = _mine(miner, kernels, f"{name} x{scale} fused_level=False",
                             query, want)
     _, f_launched, f_st = counts[name, scale, query]
-    mark, multi = COUNT_KERNELS.index("intersect_mark"), COUNT_KERNELS.index("intersect_multi")
+    mark, multi = names.index("intersect_mark"), names.index("intersect_multi")
     calls = f_launched[multi]
     rise = st["level_kernel_dispatches"] - f_st["level_kernel_dispatches"]
     print(f"[main] fused_level=False {query}: dispatches {st['level_kernel_dispatches']} "
@@ -1704,6 +1875,8 @@ def phase_main_path(graphs: dict):
     for name, n in launches.items():
         if n <= 0:
             raise SystemExit(f"[main] {name} was never launched on the main path")
+    if hasattr(engine, "xcount_worklist"):
+        _time_worklist_leaf(report)
     return counts, launches
 
 
@@ -2890,6 +3063,7 @@ KERNEL_OWNERS = (
     (r"level_kernel<[^,]*MarkLane", "intersect_mark"),
     (r"level_kernel<[^,]*MultiLane", "intersect_multi"),
     (r"level_kernel<[^,]*AggLane", "intersect_multi_agg"),
+    (r"count_kernel<[^>]*WorklistRows", "intersect_count_worklist"),
     (r"count_kernel<true, (true|false),", "intersect_mark"),
     (r"count_kernel<", "intersect_count"),
     # this tree's expand_kernel<kPack, kWarp, ...> and the parent's
@@ -3807,7 +3981,7 @@ def main(argv=None) -> int:
               "serve", "isa", "bitmap", "profile"}:
         graphs = timed("graphs", build_graphs)
     if "main" in run:
-        counts, launches = timed("main", phase_main_path, graphs)
+        counts, launches = timed("main", phase_main_path, graphs, report)
     if "weighted" in run:
         launches.update(timed("weighted", phase_weighted, graphs, counts))
     if "sparse" in run:
@@ -3857,7 +4031,7 @@ def main(argv=None) -> int:
              "shard_launches": shard_launches.get(name, 0),
              "serve_launches": serve_launches.get(name, 0),
              "isa_launches": isa_launches.get(name, 0), "parity": True, **report[name]}
-            for name in KERNELS]
+            for name in KERNELS if name in wrappers()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

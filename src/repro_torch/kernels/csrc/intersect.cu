@@ -17,6 +17,11 @@
 //                             CSR, either polarity and the window inside, and
 //                             writes a 1-byte mark; the sub_count entry (the
 //                             SUB count leaf) writes counts and no mark
+//   repro_intersect_count_worklist, repro_intersect_sub_count_worklist
+//                             (_count_kernel, no TPU kernel): a carried count
+//                             leaf read in place from its parent's compacted
+//                             worklist, summed into one int64; note further
+//                             down
 //   repro_intersect_multi  <- repro/kernels/intersect.py:intersect_multi_pallas
 //   repro_intersect_multi_csr (_multi_kernel): k-reference mark and counts,
 //                             contract further down; the _csr entry (general
@@ -111,20 +116,34 @@ __device__ __forceinline__ void block_sum_to(int v, int* warp_sums, int* out) {
 //     binary search, then a linear merge of its slice. It keeps the per-key
 //     binary search where A's window is much the shorter;
 //   * a warp shuffle (and across warps, shared memory) sums the row.
-template <bool kSub, bool kWarp, class ARows, class BRows>
+//
+// Where the counts go (Out): RowCounts writes row i's count to counts[i];
+// SumInto adds the block's sum to one 64-bit total (the in-place leaf).
+struct RowCounts {
+  static constexpr bool kSum = false;
+  int* counts;
+};
+struct SumInto {
+  static constexpr bool kSum = true;
+  unsigned long long* total;
+};
+
+template <bool kSub, bool kWarp, class ARows, class BRows, class Out>
 __global__ void count_kernel(ARows A, BRows B, const int* __restrict__ bounds,
-                             const int* __restrict__ lbounds,
-                             int* __restrict__ counts, int rows, int stage_a,
-                             int stage_b) {
+                             const int* __restrict__ lbounds, Out out, int rows,
+                             int stage_a, int stage_b) {
   extern __shared__ __align__(16) int smem[];
   __shared__ int win[4];          // block a row: a_lo, a_hi, b_lo, b_hi
   __shared__ int warp_sums[32];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = kWarp ? blockIdx.x * kRowWarps + warp : blockIdx.x;
-  if (kWarp && row >= rows) return;   // a whole warp; no block barrier follows
-  const int ub = bounds ? bounds[row] : kSentinel;
-  const int lb = lbounds ? lbounds[row] : -1;
+  // a warp past the last row leaves (no block barrier follows), unless the
+  // block's sum waits for it: then it is a dead row
+  if (kWarp && !Out::kSum && row >= rows) return;
+  const bool here = !kWarp || row < rows;
+  const int ub = !here ? 0 : bounds ? bounds[row] : kSentinel;
+  const int lb = here && lbounds ? lbounds[row] : -1;
   // keys are in (lb, ub) and ub <= SENTINEL, so SENTINEL never qualifies
   const bool dead = static_cast<long long>(ub) <= static_cast<long long>(lb) + 1;
   int hits = 0;
@@ -143,8 +162,10 @@ __global__ void count_kernel(ARows A, BRows B, const int* __restrict__ bounds,
                                   lane, 32);
       if constexpr (kSub) hits = (lane == 0 ? aw.y - aw.x : 0) - hits;
     }
-    for (int off = 16; off > 0; off >>= 1) hits += __shfl_down_sync(kFull, hits, off);
-    if (lane == 0) counts[row] = hits;
+    if constexpr (!Out::kSum) {
+      for (int off = 16; off > 0; off >>= 1) hits += __shfl_down_sync(kFull, hits, off);
+      if (lane == 0) out.counts[row] = hits;
+    }
   } else {
     Row a{}, b{};
     if (!dead) {
@@ -181,26 +202,33 @@ __global__ void count_kernel(ARows A, BRows B, const int* __restrict__ bounds,
       hits = team_intersect_count(ap, na, bp, nb, threadIdx.x, blockDim.x);
     }
     if constexpr (kSub) hits = (threadIdx.x == 0 ? na : 0) - hits;
-    block_sum_to(hits, warp_sums, counts + row);
+    if constexpr (!Out::kSum) block_sum_to(hits, warp_sums, out.counts + row);
+  }
+  if constexpr (Out::kSum) {
+    // every thread's hits, the block's rows together: one atomic a block
+    int sum = 0;
+    block_sum_to(hits, warp_sums, &sum);
+    if (threadIdx.x == 0 && sum != 0)
+      atomicAdd(out.total, static_cast<unsigned long long>(sum));
   }
 }
 
-template <bool kSub, class ARows, class BRows>
-int launch_count(ARows A, BRows B, const int* bounds, const int* lbounds,
-                 int* counts, int rows, int cap_a, int cap_b, void* stream) {
+template <bool kSub, class ARows, class BRows, class Out>
+int launch_count(ARows A, BRows B, const int* bounds, const int* lbounds, Out out,
+                 int rows, int cap_a, int cap_b, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sa = (cap_a + 3) & ~3, sb = (cap_b + 3) & ~3;
   if (cap_a <= kWarpRowCap && cap_b <= kWarpRowCap) {
     count_kernel<kSub, true><<<(rows + kRowWarps - 1) / kRowWarps, 32 * kRowWarps,
                                kRowWarps * (sa + sb + 8) * sizeof(int), st>>>(
-        A, B, bounds, lbounds, counts, rows, sa, sb);
+        A, B, bounds, lbounds, out, rows, sa, sb);
   } else {
     const int half = kStageKeys / 2;
     const int stage_a = sa < half ? sa : half, stage_b = sb < half ? sb : half;
     // 128 threads: the four window ends need four warps, and more resident
     // rows hide more of each row's load latency than wider blocks would
     count_kernel<kSub, false><<<rows, 128, (stage_a + stage_b + 8) * sizeof(int), st>>>(
-        A, B, bounds, lbounds, counts, rows, stage_a, stage_b);
+        A, B, bounds, lbounds, out, rows, stage_a, stage_b);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -928,7 +956,7 @@ extern "C" int repro_intersect_count(const int* a, const int* b,
                                      int cap_b, void* stream) {
   return launch_count<false>(PaddedRows{a, nullptr, rows, cap_a},
                              PaddedRows{b, nullptr, rows, cap_b}, bounds, lbounds,
-                             counts, rows, cap_a, cap_b, stream);
+                             RowCounts{counts}, rows, cap_a, cap_b, stream);
 }
 
 namespace {
@@ -942,9 +970,50 @@ int count_csr(const int* indptr, const int* indices, const int* a, const int* va
   const CsrRows B{indptr, indices, nullptr, vb, rows, {cap_b}};
   if (a)
     return launch_count<kSub>(PaddedRows{a, nullptr, rows, cap_a}, B, bounds, lbounds,
-                              counts, rows, cap_a, cap_b, stream);
+                              RowCounts{counts}, rows, cap_a, cap_b, stream);
   return launch_count<kSub>(CsrRows{indptr, indices, nullptr, va, rows, {cap_a}}, B,
-                            bounds, lbounds, counts, rows, cap_a, cap_b, stream);
+                            bounds, lbounds, RowCounts{counts}, rows, cap_a, cap_b,
+                            stream);
+}
+
+// The in-place count leaf: repro_intersect_count_worklist and (kSub)
+// repro_intersect_sub_count_worklist. It replaces no TPU kernel: the JAX
+// engine slices each chunk of a carried leaf out of its parent's worklist
+// with XLA ops, and so did the engine here, with about ten PyTorch kernels
+// around each count launch (the carry's gather and copy, the vertex
+// column, the live mask, the bound, the int64 cast and the sum), each a
+// few microseconds of card and many more of host. This entry reads the
+// worklist where the parent's expand left it. Item i of the chunk
+// [lo, lo + m) has A's row rows2[src[lo + i], :cap_a] (WorklistRows: the
+// parent's packed survivors, SENTINEL after them), B's row the neighbours
+// of verts2[lo + i] cut at cap_b (CsrRows), and upper bound verts2[lo + i]
+// (the leaf's one reference is the parent's new vertex, and so is its
+// bound); the counts of the m rows, and no more, are summed into *total.
+//
+// Bound: bytes, as the count kernel's: the m base rows read through src
+// (m * cap_a * 4 bytes at most, the window keys at least), the m B rows
+// and 12 bytes an item of src, verts2 and bound; 8 bytes written a block.
+//
+// Design: count_kernel's template with WorklistRows as A and SumInto as
+// its output (the same warp-a-row and block-a-row paths, so the counts
+// are the sliced leaf's). A block's rows sum in shared memory and thread 0
+// adds the block's total into the int64 with one 64-bit atomic: no
+// per-row counts, no cast and no reduction launch. A row starts wherever
+// src puts it; the staging copies move its aligned body in 16-byte words
+// and its head and tail a word at a time, so an out_cap that is not a
+// multiple of 4 keys costs the scalar words only.
+template <bool kSub>
+int count_worklist(const int* indptr, const int* indices, const int* rows2,
+                   const int* src, const int* verts2, long long* total, int lo, int m,
+                   int out_cap, int cap_a, int cap_b, void* stream) {
+  if (lo < 0 || m < 0 || cap_a < 1 || cap_a > out_cap || cap_b < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  return launch_count<kSub>(WorklistRows{rows2, src + lo, out_cap, cap_a},
+                            CsrRows{indptr, indices, nullptr, verts2 + lo, m, {cap_b}},
+                            verts2 + lo, nullptr,
+                            SumInto{reinterpret_cast<unsigned long long*>(total)}, m,
+                            cap_a, cap_b, stream);
 }
 
 }  // namespace
@@ -968,6 +1037,27 @@ extern "C" int repro_intersect_sub_count_csr(const int* indptr, const int* indic
                                              void* stream) {
   return count_csr<true>(indptr, indices, a, va, vb, bounds, lbounds, counts, rows,
                          cap_a, cap_b, stream);
+}
+
+// rows2 (B, out_cap) and src, verts2 (items,) in: the chunk [lo, lo + m) of
+// the worklist; total, one int64, accumulates.
+extern "C" int repro_intersect_count_worklist(const int* indptr, const int* indices,
+                                              const int* rows2, const int* src,
+                                              const int* verts2, long long* total,
+                                              int lo, int m, int out_cap, int cap_a,
+                                              int cap_b, void* stream) {
+  return count_worklist<false>(indptr, indices, rows2, src, verts2, total, lo, m, out_cap,
+                               cap_a, cap_b, stream);
+}
+
+// As repro_intersect_count_worklist, counting the keys of A's window NOT in B.
+extern "C" int repro_intersect_sub_count_worklist(const int* indptr, const int* indices,
+                                                  const int* rows2, const int* src,
+                                                  const int* verts2, long long* total,
+                                                  int lo, int m, int out_cap, int cap_a,
+                                                  int cap_b, void* stream) {
+  return count_worklist<true>(indptr, indices, rows2, src, verts2, total, lo, m, out_cap,
+                              cap_a, cap_b, stream);
 }
 
 extern "C" int repro_intersect_expand(const int* a, const int* b,

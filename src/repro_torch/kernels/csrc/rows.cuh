@@ -57,7 +57,10 @@ __device__ __forceinline__ bool contains(const int* __restrict__ row, int n,
 //               the padding inside them;
 //   CsrRows     the neighbours of vertex ids[r * B + i] in a CSR, cut at the
 //               operand's cap: indices[indptr[v] : indptr[v] + min(deg, cap)],
-//               exactly the live part of graph/csr.py:padded_rows.
+//               exactly the live part of graph/csr.py:padded_rows;
+//   WorklistRows  item i of an expand level's compacted worklist: its packed
+//               survivor row src[i] of rows2 (B, out_cap), cut at cap, in
+//               place (SENTINEL after the survivors).
 // kPadded tells the window search whether SENTINEL can sit inside a row.
 constexpr int kMaxRefs = 8;
 
@@ -92,6 +95,16 @@ struct CsrRows {
     const int deg = indptr[v + 1] - start;
     return {indices + start, values ? values + start : nullptr,
             deg < caps[r] ? deg : caps[r]};
+  }
+};
+
+struct WorklistRows {
+  static constexpr bool kPadded = true;
+  const int* rows2;
+  const int* src;
+  int out_cap, cap;
+  __device__ __forceinline__ Row row(int, int i) const {
+    return {rows2 + static_cast<size_t>(src[i]) * out_cap, nullptr, cap};
   }
 };
 

@@ -25,6 +25,9 @@ turns ``intersect_expand_csr``'s rows into the level's worklist.
                                           -> (rows (B, out_cap), counts (B,))
   ``intersect_sub_count_csr``  the SUB count leaf: the same, counting A's
                                keys NOT in B; counts in ``intersect_mark``
+  ``intersect_count_worklist`` a carried INTER or SUB count leaf read in
+                               place from its parent's compacted worklist
+                               (no TPU kernel) -> adds to an int64 total
   ``intersect_mark_csr``       SUB expand levels and the per-reference masks:
                                a padded base, B from the CSR, either
                                polarity, the window inside -> bool (B, cap_a)
@@ -416,6 +419,66 @@ def intersect_sub_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=N
     return _count_csr(intersect_mark, "repro_intersect_sub_count_csr",
                       intersect_sub_count_csr_ref, indptr, indices, vb, cap_b, a, va,
                       cap_a, bounds, lbounds)
+
+
+def intersect_count_worklist_ref(indptr, indices, rows2, src, verts2, lo: int, m: int,
+                                 cap_a: int, cap_b: int, total, sub: bool = False):
+    """Plain torch version of ``intersect_count_worklist``: the chunk's base
+    rows gathered through ``src`` and its vertex column sliced, then the
+    CSR count leaf's plain version, its sum added to ``total``."""
+    v = verts2[lo: lo + m]
+    a = rows2[src[lo: lo + m].long(), :cap_a]
+    ref = intersect_sub_count_csr_ref if sub else intersect_count_csr_ref
+    total += ref(indptr, indices, v, cap_b, a=a, bounds=v).sum(dtype=torch.int64)
+    return total
+
+
+def intersect_count_worklist(indptr, indices, rows2, src, verts2, lo: int, m: int,
+                             cap_a: int, cap_b: int, total, sub: bool = False):
+    """A carried count leaf read in place from its parent expand's
+    compacted worklist: adds the chunk's count to ``total`` and returns it.
+
+    ``rows2`` (B, out_cap), ``src`` and ``verts2`` (items,) are
+    ``xinter_compact_csr``'s packed survivor rows and worklist. Item i of
+    the chunk [lo, lo + m) has base row ``rows2[src[lo + i], :cap_a]``,
+    B's row the neighbour list of ``verts2[lo + i]`` cut at ``cap_b`` and
+    upper bound ``verts2[lo + i]``; no lower bound. ``sub`` counts the
+    base's keys NOT in B's row (the SUB leaf). The count equals
+    ``intersect_count_csr`` (``intersect_sub_count_csr``) on the sliced
+    chunk, summed. ``total`` is a 0-d int64 tensor; on the card the kernel
+    adds to it in place, one launch and no other kernel. ``src`` must index
+    rows of ``rows2`` and ``verts2`` hold vertices of the CSR: checking them
+    would cost a read of the device. Launches count in
+    ``intersect_count_worklist.launches``."""
+    _check_csr(indptr, indices)
+    dev = indptr.device
+    if rows2.dim() != 2:
+        raise ValueError(f"rows2 must be (B, out_cap), got {tuple(rows2.shape)}")
+    _check_tensor("rows2", rows2, tuple(rows2.shape), torch.int32, dev)
+    items = _check_vertices("src", src, dev)
+    _check_tensor("verts2", verts2, (items,), torch.int32, dev)
+    _check_tensor("total", total, (), torch.int64, dev)
+    _check_cap("cap_a", cap_a)
+    _check_cap("cap_b", cap_b)
+    if cap_a > rows2.shape[1]:
+        raise ValueError(f"cap_a {cap_a} > rows2's width {rows2.shape[1]}")
+    if not (isinstance(lo, int) and isinstance(m, int) and 0 <= lo <= lo + m <= items):
+        raise ValueError(f"chunk [{lo}, {lo} + {m}) is not inside the {items} items")
+    if dev.type == "cpu":
+        return intersect_count_worklist_ref(indptr, indices, rows2, src, verts2, lo, m,
+                                            cap_a, cap_b, total, sub)
+    if dev.type != "cuda":
+        raise ValueError(f"no intersect kernel for device {dev}")
+    if m:
+        launch("intersect", "repro_intersect_sub_count_worklist" if sub
+               else "repro_intersect_count_worklist", dev,
+               (indptr, indices, rows2, src, verts2, total),
+               (lo, m, rows2.shape[1], cap_a, cap_b))
+        intersect_count_worklist.launches += 1
+    return total
+
+
+intersect_count_worklist.launches = 0
 
 
 def intersect_expand(a, b, bounds=None, lbounds=None):

@@ -15,9 +15,9 @@ from repro_torch.core.stream import SENTINEL
 from .bitmap import bitmap_and_count, keys_to_bitmap
 from .compact import compact_rows
 from .intersect import (expand_items, intersect_count, intersect_count_csr,
-                        intersect_expand, intersect_expand_csr, intersect_mark,
-                        intersect_mark_csr, intersect_multi, intersect_multi_agg,
-                        intersect_multi_agg_csr, intersect_multi_csr,
+                        intersect_count_worklist, intersect_expand, intersect_expand_csr,
+                        intersect_mark, intersect_mark_csr, intersect_multi,
+                        intersect_multi_agg, intersect_multi_agg_csr, intersect_multi_csr,
                         intersect_multi_mark_csr, intersect_sub_count_csr)
 from .svinter import vinter, vinter_grid
 
@@ -34,6 +34,17 @@ def xinter_count_csr(indptr, indices, vb, cap_b, a=None, va=None, cap_a=None,
     rows ``a``): the count leaf, with no gathered rows in device memory."""
     return intersect_count_csr(indptr, indices, vb, cap_b, a, va, cap_a, bounds,
                                lbounds)
+
+
+def xcount_worklist(indptr, indices, rows2, src, verts2, lo: int, m: int, cap_a: int,
+                    cap_b: int, total, sub: bool = False):
+    """A carried INTER (``sub``: SUB) count leaf over the chunk [lo, lo + m)
+    of its parent's compacted worklist ``(rows2, src, verts2)``, read in
+    place: the base row of item i is ``rows2[src[i], :cap_a]``, its one
+    reference and its upper bound the vertex ``verts2[i]``; the count is
+    added to the 0-d int64 ``total``. One launch, nothing sliced."""
+    return intersect_count_worklist(indptr, indices, rows2, src, verts2, lo, m, cap_a,
+                                    cap_b, total, sub)
 
 
 def xinter(a, b, bounds=None, out_cap: int | None = None, lbounds=None):

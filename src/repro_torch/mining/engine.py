@@ -21,6 +21,14 @@ column) crosses to the host, to size the next level's capacities; count
 levels leave one int64 partial per chunk on the device, summed and read
 once per run. Padded tail items carry bound 0, so they contribute nothing.
 
+A carried count leaf whose one INTER or SUB reference and one upper bound
+are its parent's new vertex (a clique's last level, diamond's SUB leaf)
+reads the parent's compacted worklist in place: one
+``ops.xcount_worklist`` launch a chunk, which adds the chunk's count into
+one int64 accumulator a leaf a run, with no chunk sliced and no torch op
+around it. Every other leaf, and the host path, ``record`` and the sharded
+runner, read sliced chunks.
+
 A level runs in one of three shapes, as in the reference engine:
 
   'inter'  one INTER reference: the count / expand kernels, which read a
@@ -110,11 +118,11 @@ from repro_torch.core.batch import batch_compact_scan, compact_indices_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
 from repro_torch.kernels.compact import compact_rows
-from repro_torch.kernels.ops import (xinter, xinter_compact_csr, xinter_count,
-                                     xinter_count_csr, xlevel_agg, xlevel_agg_csr,
-                                     xlevel_compact, xlevel_compact_csr, xlevel_count,
-                                     xlevel_count_csr, xmark_csr, xsub_compact_csr,
-                                     xsub_count_csr)
+from repro_torch.kernels.ops import (xcount_worklist, xinter, xinter_compact_csr,
+                                     xinter_count, xinter_count_csr, xlevel_agg,
+                                     xlevel_agg_csr, xlevel_compact, xlevel_compact_csr,
+                                     xlevel_count, xlevel_count_csr, xmark_csr,
+                                     xsub_compact_csr, xsub_count_csr)
 from repro_torch.obs import NO_SPAN, LegacyStatsView, Telemetry, activate
 from repro_torch.values import edge_value_lookup, prefix_scale
 
@@ -409,6 +417,9 @@ class WaveRunner:
     # prepended to every executable key: the sharded runner's
     # ("mesh", axis, shards) keeps its executables apart from these
     _exec_prefix: tuple = ()
+    # whether carried count leaves may read their worklist in place; the
+    # sharded runner's leaves reduce shard partials and read sliced chunks
+    _in_place_leaves: bool = True
 
     # ``stats`` keys, in the reference engine's order; each is a registry
     # counter the view derives from
@@ -447,6 +458,10 @@ class WaveRunner:
         # aggregate-leaf calls: each rides the leaf's one membership launch,
         # so this counts value lanes, not extra launches
         self._ct_value_lanes = self.metrics.counter("value_lane_dispatches")
+        # count-leaf calls that read their parent's worklist in place
+        self._ct_in_place = self.metrics.counter("leaf_inplace_calls")
+        # the run's in-place leaf accumulators, one int64 a leaf
+        self._accs: dict[int, torch.Tensor] = {}
         self.level_execs: dict[tuple[str, int], int] = {}
         # whether the last ``_executable`` call built its executable (the
         # dispatch span's ``exec_cached`` attribute)
@@ -487,21 +502,31 @@ class WaveRunner:
 
     # ------------------------------------------------------------ cache
     def _executable(self, key: tuple, build: Callable) -> Callable:
-        fn, fresh = self._exec_cache.get_or_build(
-            (self.chunk, self.device_compact, self.fused_level) + self._exec_prefix + key,
-            self._wrap(key, build))
+        fn, fresh = self._exec_cache.get_or_build(self._exec_key(key),
+                                                  self._wrap(key, build))
         self._exec_fresh = fresh
         self._ct["exec_misses" if fresh else "exec_hits"].inc()
         return fn
 
+    def _exec_key(self, key: tuple) -> tuple:
+        return (self.chunk, self.device_compact, self.fused_level) + self._exec_prefix + key
+
+    def _note_slice(self, op: LevelOp, b: int, out_cap: int, cap2: int) -> None:
+        """Count the lookup of the chunk slice that ``_plan_chunk_fn`` would
+        make, and build nothing: an in-place leaf slices no chunk, but the
+        exec counters stay the JAX engine's, which slices."""
+        fresh = self._exec_cache.note(self._exec_key(("pchunk", op, b, out_cap, cap2,
+                                                      self.chunk)))
+        self._ct["exec_misses" if fresh else "exec_hits"].inc()
+
     # ------------------------------------------------------------ traced dispatch
     def _dispatch(self, op: LevelOp, fn: Callable, args: tuple, items=None,
-                  caps_sig: tuple = (), host: bool = False):
+                  caps_sig: tuple = (), host: bool = False, inplace: bool = False):
         """Run one level executable. With tracing on, the call sits in a
         ``dispatch`` span (op kind and level, membership launches, items,
-        capacity signature, executable-cache hit): the host's time to issue
-        the level body's torch ops and launches, not the card's. With
-        tracing off: the bare call."""
+        capacity signature, executable-cache hit, ``inplace`` for a leaf
+        read in place): the host's time to issue the level body's torch ops
+        and launches, not the card's. With tracing off: the bare call."""
         tr = self.telemetry.tracer
         if not tr.enabled:
             return fn(*args)
@@ -516,6 +541,8 @@ class WaveRunner:
             attrs["caps"] = _caps_name(caps_sig)
         if host:
             attrs["host"] = True
+        if inplace:
+            attrs["inplace"] = True
         with tr.span("dispatch", cat="dispatch", **attrs):
             return fn(*args)
 
@@ -909,6 +936,18 @@ class WaveRunner:
             return outs, v, None
         return fn
 
+    @staticmethod
+    def _worklist_body(op: LevelOp, caps_sig: tuple, cap2: int):
+        """An in-place count leaf: one ``xcount_worklist`` launch over the
+        chunk [lo, lo + m) of the parent's worklist, into ``acc``."""
+        cap_b = caps_sig[0][1]
+        sub = bool(op.sub)
+
+        def fn(g, rows2, src, verts2, lo, m, acc):
+            return xcount_worklist(g.indptr, g.indices, rows2, src, verts2, lo, m, cap2,
+                                   cap_b, acc, sub)
+        return fn
+
     def _plan_expand_host_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int,
                              out_cap: int):
         """Host-path twin of ``_plan_expand_fn``: the level's keep mask (one
@@ -1040,6 +1079,7 @@ class WaveRunner:
         (N, k) int32 embedding matrix."""
         need1 = 1 in plan.ops[0].row_refs()
         outs: list = []
+        self._accs = {}
         with activate(self.telemetry), self._span("execute", plan=plan.pattern.name):
             for cap0, dv0, dv1, v1h, n in self._edge_feed(plan.symmetric):
                 self._ct_feed_chunks.inc()
@@ -1059,6 +1099,7 @@ class WaveRunner:
         ``forest.plans`` order, equal to running each plan through ``run``
         (ints, floats, or (N, k) int32 matrices for emit plans)."""
         acc: list[list] = [[] for _ in forest.plans]
+        self._accs = {}
         with activate(self.telemetry), \
                 self._span("execute", plans=len(forest.plans), forest=True):
             for symmetric, roots in ((True, forest.symmetric_roots),
@@ -1170,11 +1211,23 @@ class WaveRunner:
             if has_b:
                 feeds.append(([ch], src_b, verts_b, tot_b))
         for children, s_, v_, t_ in feeds:
-            for cols2, carry2, vch, m in self._expand_chunks(
-                    op, b, out_cap, cap2, rows2, s_, v_, cols, t_):
-                self._record_wave(op, cols2, carry2, vch, m)
-                for child in children:
-                    self._forest_descend(child, cols2, caps2, carry2, m, acc)
+            in_place, sliced = [], []
+            for ch in children:
+                (in_place if self._reads_in_place(op, ch.op) else sliced).append(ch)
+            if sliced:
+                for cols2, carry2, vch, m in self._expand_chunks(
+                        op, b, out_cap, cap2, rows2, s_, v_, cols, t_):
+                    self._record_wave(op, cols2, carry2, vch, m)
+                    for child in sliced:
+                        self._forest_descend(child, cols2, caps2, carry2, m, acc)
+            elif in_place:
+                self._note_slice(op, b, out_cap, cap2)
+            for ch in in_place:
+                part = self._leaf_in_place(op, ch.op, id(ch), len(ch.plans), rows2, s_, v_,
+                                           t_, caps2, cap2)
+                if part is not None:
+                    for i in ch.plans:
+                        acc[i].append(part)
 
     def _plan_descend(self, plan: WavePlan, oi: int, cols: dict, caps: dict,
                       carry, n: int) -> list:
@@ -1188,6 +1241,17 @@ class WaveRunner:
             if op.kind == "emit":
                 return self._plan_emit(op, caps_sig, cap_base, out_cap, out_items, cols,
                                        vals, carry, n)
+            child = plan.ops[oi + 1]
+            if self._reads_in_place(op, child):
+                exp = self._expand_device(op, caps_sig, cap_base, out_cap, out_items, vals,
+                                          carry, n)
+                if exp is None:
+                    return []
+                rows2, src, verts2, total, caps2, cap2, _ = exp
+                self._note_slice(op, b, out_cap, cap2)
+                part = self._leaf_in_place(op, child, id(child), 1, rows2, src, verts2,
+                                           total, caps2, cap2)
+                return [] if part is None else [part]
             if self.device_compact:
                 chunks = self._expand_chunks_device(op, caps_sig, cap_base, out_cap,
                                                     out_items, b, cols, vals, carry, n)
@@ -1261,6 +1325,49 @@ class WaveRunner:
         caps2 = {c: _pow2cap(max(d, 1)) for c, d in zip(op.gather_refs, dmaxs)}
         cap2 = round_capacity(maxc) if op.carry_out else 0
         return rows2, src, verts2, total, caps2, cap2, total
+
+    def _reads_in_place(self, parent: LevelOp, op: LevelOp) -> bool:
+        """Whether count leaf ``op`` reads ``parent``'s compacted worklist in
+        place (``_leaf_in_place``) instead of sliced chunks: its base is the
+        parent's carried survivors, its one INTER or SUB reference and its
+        one upper bound are the parent's new vertex, and nothing else
+        shapes it (no lower bound, exclude, residual, tail or aggregate).
+        The host path, ``record`` (its trace keeps the sliced waves) and
+        the sharded runner slice."""
+        return (self._in_place_leaves and self.device_compact and not self.record
+                and op.kind == "count" and op.use_carry and op.agg is None
+                and op.tail is None and not (op.lb or op.exclude or op.residual)
+                and op.inter + op.sub == (parent.level,) and op.ub == (parent.level,))
+
+    def _leaf_in_place(self, parent: LevelOp, op: LevelOp, key: int, owners: int,
+                       rows2, src, verts2, total: int, caps2: dict, cap2: int):
+        """Count leaf ``op`` over every chunk of ``parent``'s compacted
+        worklist ``(rows2, src, verts2)`` of ``total`` items, read in place:
+        one ``xcount_worklist`` launch a chunk into the run's int64
+        accumulator under ``key``, zeroed once a run. Returns the
+        accumulator when this call made it (the caller hands it to its
+        ``owners`` plans' partials, once), else None. The counters are the
+        sliced path's: each chunk is a level call with its cache lookup and
+        a partial a plan to read."""
+        acc = self._accs.get(key)
+        fresh = acc is None
+        if fresh:
+            acc = self._accs[key] = torch.zeros((), dtype=torch.int64, device=self.device)
+        caps_sig = ((parent.level, caps2[parent.level]),)
+        calls = 0
+        for lo, m in self._chunk_steps(total):
+            with self._level_span(op, m):
+                self._bump(op)
+                fn = self._executable(("pleaf", op, caps_sig, cap2),
+                                      lambda: self._worklist_body(op, caps_sig, cap2))
+                self._dispatch(op, fn, (self.g, rows2, src, verts2, lo, m, acc), items=m,
+                               caps_sig=caps_sig, inplace=True)
+            calls += 1
+        self._ct_in_place.inc(calls)
+        # the JAX engine reads one partial a chunk a plan; ``run`` counts a
+        # sync for the accumulator once, so the other chunks count theirs here
+        self._ct["host_syncs"].inc(owners * (calls - fresh))
+        return acc if fresh else None
 
     def _chunk_steps(self, total):
         """(lo, live items) of each chunk of a worklist of ``total`` items."""

@@ -105,6 +105,10 @@ def mesh_signature(mesh=None, device="cuda") -> tuple:
         tuple((str(a), int(s)) for a, s in dict(mesh.shape).items())
 
 
+# an ExecutableCache entry looked up by ``note``, not built yet
+_UNBUILT = object()
+
+
 class ExecutableCache:
     """Session-lifetime cache of built level executables, with hit/miss
     stats; ``misses`` counts executables actually built — the session's
@@ -126,7 +130,21 @@ class ExecutableCache:
             self.misses += 1
             return fn, True
         self.hits += 1
+        if fn is _UNBUILT:
+            fn = self._entries[key] = build()
         return fn, False
+
+    def note(self, key: tuple) -> bool:
+        """Count a lookup of ``key`` as ``get_or_build`` would and build
+        nothing (a later ``get_or_build`` builds it and counts a hit).
+        Returns whether the lookup missed."""
+        key = self.prefix + key
+        if key in self._entries:
+            self.hits += 1
+            return False
+        self._entries[key] = _UNBUILT
+        self.misses += 1
+        return True
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -148,6 +148,9 @@ class ShardedWaveRunner(WaveRunner):
     shared, so the two runners cannot drift apart.
     """
 
+    # a leaf's shard partials reduce in ``_wrap``: leaves read sliced chunks
+    _in_place_leaves = False
+
     def __init__(self, g: CSRGraph, mesh, exec_cache, *, axis: str = "mine",
                  feed_partition: str = "round_robin", chunk: int | None = None,
                  device_compact: bool = True, record: bool = False,

@@ -155,3 +155,43 @@ def make_csr(stacks, value_stacks=()):
     B = stacks[0].shape[0]
     ids = [np.arange(j * B, (j + 1) * B, dtype=np.int32) for j in range(len(stacks))]
     return indptr, indices, values, ids
+
+
+def make_worklist(seed, parents, out_cap, cap_b, total, items):
+    """A carried count leaf's operands as its parent expand leaves them: a
+    CSR over ``nv`` vertices (some rows longer than ``cap_b``, so cut, some
+    empty), ``rows2`` (parents, out_cap) of sorted keys over the vertices,
+    SENTINEL after each row's survivors, and the worklist ``src`` /
+    ``verts2`` of ``items`` entries, the first ``total`` live (src sorted;
+    every seventh vertex 0, whose bound 0 kills its row), the rest (0, 0)
+    as ``expand_items`` leaves them. -> dict of numpy arrays and ``total``."""
+    rng = np.random.default_rng(seed)
+    nv = 2 * max(out_cap, cap_b)
+    degs = rng.integers(0, cap_b + cap_b // 2 + 1, nv)
+    degs[rng.random(nv) < 0.1] = 0
+    indptr = np.zeros(nv + 1, np.int32)
+    np.cumsum(degs, out=indptr[1:])
+    indices = np.concatenate([np.sort(rng.choice(nv, d, replace=False)) for d in degs]
+                             + [np.full(128, SENTINEL)]).astype(np.int32)
+    src = np.zeros(items, np.int32)
+    verts2 = np.zeros(items, np.int32)
+    src[:total] = np.sort(rng.integers(0, parents, total))
+    verts2[:total] = rng.integers(1, nv, total)
+    verts2[:total:7] = 0
+    return dict(indptr=indptr, indices=indices, rows2=make_rows(rng, parents, out_cap, nv),
+                src=src, verts2=verts2, total=total)
+
+
+def worklist_count(w, lo, m, cap_a, cap_b, sub=False) -> int:
+    """The count of the chunk [lo, lo + m) of ``make_worklist``'s ``w`` by
+    Python sets: per item, the base row's keys below the item's vertex, cut
+    at cap_a, that are in (``sub``: not in) the vertex's CSR row cut at
+    cap_b."""
+    indptr, indices = w["indptr"], w["indices"]
+    total = 0
+    for i in range(lo, lo + m):
+        v = int(w["verts2"][i])
+        base = [int(k) for k in w["rows2"][w["src"][i], :cap_a] if k < v]
+        nbrs = set(indices[indptr[v]: indptr[v] + min(indptr[v + 1] - indptr[v], cap_b)])
+        total += sum((k in nbrs) != sub for k in base)
+    return total

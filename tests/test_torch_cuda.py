@@ -20,7 +20,7 @@ from repro_torch.sparse import from_dense, random_csf, spmsp_matmul, ttv
 
 from _torch_rows import (AGG_OPS, AGG_QUERIES, T, make_agg_case, make_bounds, make_case,
                          make_csr, make_level_case, make_rows, make_values,
-                         make_vinter_case, offset_view, sum_is_exact)
+                         make_vinter_case, make_worklist, offset_view, sum_is_exact)
 
 pytestmark = pytest.mark.cuda
 
@@ -128,12 +128,16 @@ def test_miner_on_card_equals_miner_on_cpu(cuda, chunk):
     g = get_dataset("email-eu-core", 0.25)
     dev, cpu = Miner(g, chunk=chunk), Miner(g, device="cpu", chunk=chunk)
     n0, n1 = K.intersect_count.launches, K.intersect_expand.launches
+    n2 = K.intersect_count_worklist.launches
     for q in ("triangle", "4-clique", "5-clique", "tailed-triangle", "triangle-nested"):
         assert dev.count(q) == cpu.count(q), q
         assert dev.stats["runner"] == cpu.stats["runner"], q
     st = dev.stats["runner"]
     assert K.intersect_expand.launches - n1 == st["device_compactions"] > 0
-    assert K.intersect_count.launches - n0 == \
+    # the cliques' last levels read their worklist in place
+    in_place = K.intersect_count_worklist.launches - n2
+    assert in_place == dev.metrics.counter("leaf_inplace_calls").value > 0
+    assert K.intersect_count.launches - n0 + in_place == \
         st["level_kernel_dispatches"] - st["device_compactions"] > 0
 
 
@@ -434,6 +438,47 @@ def test_forest_and_host_path_on_card_equal_cpu(cuda):
         assert dev.stats["runner"] == cpu.stats["runner"]
         assert CP.compact_rows.launches - n == dev.stats["runner"]["host_compactions"]
         assert dev.count_many(["triangle", "three-chain"]) == [11502, 138732]
+
+
+# the in-place count leaf: (out_cap, cap_a, cap_b); caps up to 1024 run a
+# warp a row, 2048 a block a row; out_cap 130 and 1030 start rows off
+# 16-byte boundaries
+WORKLIST_SHAPES = [(128, 128, 256), (130, 128, 1024), (1030, 1024, 2048),
+                   (2048, 2048, 128)]
+
+
+@pytest.mark.parametrize("sub", [False, True])
+@pytest.mark.parametrize("out_cap,cap_a,cap_b", WORKLIST_SHAPES)
+def test_count_worklist_kernel_equals_plain_version(cuda, out_cap, cap_a, cap_b, sub):
+    """The in-place leaf over every chunk of a worklist (full chunks, a
+    short last one, dead rows among them) adds into one int64 from
+    2^31 - 5 what its plain version adds and what the sliced chunks' CSR
+    count kernel sums to; one launch a chunk, none for an empty one."""
+    chunk = 96
+    w = make_worklist(out_cap + cap_b + sub, 40, out_cap, cap_b, 3 * chunk + 40,
+                      4 * chunk)
+    names = ("indptr", "indices", "rows2", "src", "verts2")
+    cpu = [T(w[k]) for k in names]
+    dev = [x.to(cuda) for x in cpu]
+    start = 2**31 - 5
+    got = torch.tensor(start, dtype=torch.int64, device=cuda)
+    want = torch.tensor(start, dtype=torch.int64)
+    sliced = start
+    count_csr = K.intersect_sub_count_csr if sub else K.intersect_count_csr
+    n, calls = K.intersect_count_worklist.launches, 0
+    for lo in range(0, w["total"], chunk):
+        m = min(chunk, w["total"] - lo)
+        assert K.intersect_count_worklist(*dev, lo, m, cap_a, cap_b, got, sub) is got
+        K.intersect_count_worklist(*cpu, lo, m, cap_a, cap_b, want, sub)
+        ip, ix, rows2, src, verts2 = dev
+        v = verts2[lo: lo + m]
+        a = rows2[src[lo: lo + m].long(), :cap_a].contiguous()
+        sliced += int(count_csr(ip, ix, v, cap_b, a=a, bounds=v).sum())
+        calls += 1
+    K.intersect_count_worklist(*dev, w["total"], 0, cap_a, cap_b, got, sub)
+    torch.cuda.synchronize()
+    assert calls == 4 and K.intersect_count_worklist.launches == n + calls
+    assert int(got) == int(want) == sliced > 2**31 - 1
 
 
 # the leaves' CSR-operand forms: (B, cap_a, cap_b, cut), each row read at

@@ -23,7 +23,8 @@ from repro_torch import Miner
 from repro_torch.graph import get_dataset
 from repro_torch.mining import baseline, engine
 from repro_torch.mining.plan import TRIANGLE, clique_pattern, compile_pattern
-from repro_torch.mining.session import MinerConfig
+from repro_torch.mining import session as session_mod
+from repro_torch.mining.session import ExecutableCache, MinerConfig
 from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -54,6 +55,60 @@ def test_counts_and_counters_equal_jax_miner(name, scale, chunk):
     for q in QUERIES:
         assert tm.count(q) == jm.count(q), q
         assert runner_counters(tm) == runner_counters(jm), q
+
+
+# the carried leaves that read their parent's worklist in place: a
+# clique's last level and diamond's SUB leaf; every other query's leaves slice
+IN_PLACE_LEAVES = {"4-clique": ("count", 3), "5-clique": ("count", 4),
+                   "diamond": ("count", 3)}
+SLICED = ("triangle", "tailed-triangle", "three-chain", "paw")
+
+
+@pytest.mark.parametrize("name,scale", GRAPHS)
+@pytest.mark.parametrize("chunk", [None, 128])
+def test_carried_leaves_read_their_worklist_in_place(name, scale, chunk):
+    """``leaf_inplace_calls`` counts every call of the in-place leaves and
+    none of the other queries'; a ``record=True`` runner slices them all
+    and counts the same; a forest holding diamond and 4-clique counts what
+    ``run`` does and reads worklists in place too."""
+    g = get_dataset(name, scale)
+    m = Miner(g, device="cpu", chunk=chunk)
+    calls = m.metrics.counter("leaf_inplace_calls")
+    counts = {}
+    for q in (*SLICED, *IN_PLACE_LEAVES):
+        c0, e0 = calls.value, dict(m.runner.level_execs)
+        counts[q] = m.count(q)
+        key = IN_PLACE_LEAVES.get(q)
+        want = 0 if key is None else m.runner.level_execs.get(key, 0) - e0.get(key, 0)
+        assert calls.value - c0 == want, q
+    assert calls.value > 0
+    rec = engine.WaveRunner(g, ExecutableCache(device="cpu"), chunk=chunk, record=True)
+    for q in IN_PLACE_LEAVES:
+        assert rec.run(m.compile(q)) == counts[q], q
+    assert rec.metrics.counter("leaf_inplace_calls").value == 0 and rec.trace
+    c0 = calls.value
+    batch = ["diamond", "4-clique", "paw", "4-cycle"]
+    assert m.count_many(batch)[:3] == [counts[q] for q in batch[:3]]
+    assert calls.value > c0
+
+
+def test_in_place_leaves_count_the_slice_lookup_and_build_no_slice():
+    """An in-place leaf's slice lookup counts a miss, then hits, as the
+    sliced path's would, and builds nothing; a later sliced run of the same
+    plan (``record=True`` on the same cache) builds it on a hit."""
+    cache = ExecutableCache(device="cpu")
+    g = get_dataset("citeseer", 1.0)
+    plan = Miner(g, device="cpu").compile("4-clique")
+    runner = engine.WaveRunner(g, cache)
+    want = runner.run(plan)
+    pchunk = {k: fn for k, fn in cache._entries.items() if "pchunk" in k}
+    assert pchunk and all(fn is session_mod._UNBUILT for fn in pchunk.values())
+    misses = cache.misses
+    runner.run(plan)
+    assert cache.misses == misses
+    rec = engine.WaveRunner(g, cache, record=True)
+    assert rec.run(plan) == want
+    assert all(callable(cache._entries[k]) for k in pchunk)
 
 
 def test_reference_counts_on_email_eu_core():

@@ -32,7 +32,7 @@ from repro_torch.kernels import intersect as K
 from repro_torch.kernels import ops as tops
 from repro_torch.mining import engine
 
-from _torch_rows import T, make_bounds, make_values
+from _torch_rows import T, make_bounds, make_values, make_worklist, worklist_count
 
 V = 300
 HUB = 7          # degree above both caps below: its rows are cut
@@ -165,6 +165,27 @@ def test_csr_wrappers_count_launches_only_on_the_card():
     assert (K.intersect_count.launches, K.intersect_multi_agg.launches) == (n0, n1)
 
 
+@pytest.mark.parametrize("sub", [False, True])
+@pytest.mark.parametrize("out_cap,cap_a,cap_b", [(128, 128, 128), (130, 128, 256),
+                                                 (256, 128, 128)])
+def test_count_worklist_plain_version_counts_by_sets(out_cap, cap_a, cap_b, sub):
+    """The in-place leaf's plain version over each chunk of a worklist (cut
+    base and B rows, dead rows, a short last chunk) adds the count Python
+    sets give to its total, in place; an empty chunk adds nothing, and
+    nothing launches on the CPU."""
+    w = make_worklist(out_cap + cap_b + sub, 12, out_cap, cap_b, 70, 96)
+    args = [T(w[k]) for k in ("indptr", "indices", "rows2", "src", "verts2")]
+    total = torch.tensor(5, dtype=torch.int64)
+    want, n = 5, K.intersect_count_worklist.launches
+    for lo in range(0, 70, 32):
+        m = min(32, 70 - lo)
+        assert K.intersect_count_worklist(*args, lo, m, cap_a, cap_b, total, sub) is total
+        want += worklist_count(w, lo, m, cap_a, cap_b, sub)
+    K.intersect_count_worklist(*args, 70, 0, cap_a, cap_b, total, sub)
+    assert int(total) == want > 5
+    assert K.intersect_count_worklist.launches == n
+
+
 def _bad_calls():
     vb, va = torch.arange(4, dtype=torch.int32), torch.arange(4, dtype=torch.int32)
     a = torch.full((4, 128), SENTINEL, dtype=torch.int32)
@@ -172,7 +193,20 @@ def _bad_calls():
     one = torch.ones(4)
     count = K.intersect_count_csr
     agg = K.intersect_multi_agg_csr
+    acc = torch.zeros((), dtype=torch.int64)
+
+    def worklist(rows2=a, src=vb, verts2=va, lo=0, m=4, cap_a=128, total=acc):
+        return K.intersect_count_worklist(ip, ix, rows2, src, verts2, lo, m, cap_a, 128,
+                                          total)
     return {
+        "worklist cap_a past rows2": lambda: worklist(cap_a=256),
+        "worklist chunk past items": lambda: worklist(lo=2, m=3),
+        "worklist negative lo": lambda: worklist(lo=-1, m=1),
+        "worklist verts2 short": lambda: worklist(verts2=va[:3]),
+        "worklist int64 src": lambda: worklist(src=vb.long()),
+        "worklist 1-D rows2": lambda: worklist(rows2=a[0]),
+        "worklist int32 total": lambda: worklist(total=acc.int()),
+        "worklist total (1,)": lambda: worklist(total=acc[None]),
         "both bases": lambda: count(ip, ix, vb, 128, a=a, va=va, cap_a=128),
         "no base": lambda: count(ip, ix, vb, 128),
         "va without cap": lambda: count(ip, ix, vb, 128, va=va),

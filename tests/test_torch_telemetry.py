@@ -66,8 +66,10 @@ def test_telemetry_mix_equals_baseline_json():
 
 def _tree(span) -> tuple:
     """A span without its times: (name, cat, attrs, children), the port's
-    ``host`` spans left out (no ``host`` span has children)."""
-    return (span.name, span.cat, dict(span.attrs),
+    ``host`` spans (no ``host`` span has children) and its dispatch spans'
+    ``inplace`` attribute (a leaf read in place) left out."""
+    attrs = {k: v for k, v in span.attrs.items() if k != "inplace"}
+    return (span.name, span.cat, attrs,
             [_tree(c) for c in span.children if c.cat != "host"])
 
 

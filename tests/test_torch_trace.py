@@ -195,6 +195,35 @@ def test_launch_counts_a_stubbed_launch(monkeypatch, traced):
             [(sp.name, sp.t0_ns) for sp in spans]
 
 
+def test_in_place_leaf_dispatch_has_no_slice_before_it():
+    """4-clique's leaf reads its parent's worklist in place: its dispatch
+    span says ``inplace=True`` and no ``slice`` span sits under the expand
+    before its level span; paw's general leaf reads sliced chunks, each
+    level span right after its ``slice``."""
+    tel = Telemetry(enabled=True)
+    m = Miner(_graph(), device="cpu", chunk=16, telemetry=tel)
+    m.count("4-clique")
+    m.count("paw")
+    roots = tel.tracer.finished
+    parents = _parents(roots)
+    for root, in_place in zip(roots, (True, False)):
+        leaves = []
+
+        def walk(sp):
+            leaves.extend(c for c in sp.children if c.name == "L3:count")
+            for c in sp.children:
+                walk(c)
+        walk(root)
+        assert len(leaves) > 1
+        for leaf in leaves:
+            disp, = [c for c in leaf.children if c.name == "dispatch"]
+            assert disp.attrs.get("inplace", False) is in_place
+            sibs = parents[id(leaf)].children
+            at = next(i for i, c in enumerate(sibs) if c is leaf)
+            assert (sibs[at - 1].name == "slice") is not in_place
+            assert any(c.name == "slice" for c in sibs[:at]) is not in_place
+
+
 def test_activate_nests_and_restores():
     a, b = Telemetry(), Telemetry()
     with activate(a):
@@ -208,12 +237,12 @@ def test_run_activates_the_session_telemetry(monkeypatch):
     """A level call runs with its session's telemetry active; none is
     active before or after the query."""
     seen = []
-    leaf = WaveRunner._leaf
+    dispatch = WaveRunner._dispatch
 
     def spy(self, *a, **k):
         seen.append(active())
-        return leaf(self, *a, **k)
-    monkeypatch.setattr(WaveRunner, "_leaf", spy)
+        return dispatch(self, *a, **k)
+    monkeypatch.setattr(WaveRunner, "_dispatch", spy)
     m = Miner(_graph(), device="cpu")
     assert active() is None
     m.count_many(["triangle", "4-clique"])
