@@ -318,6 +318,20 @@ TIMED_SHAPE = (2048, 2048, 2048)
 WORKLIST_SHAPES = ((128, 128, 512), (130, 128, 1024), (1030, 1024, 2048),
                    (2048, 2048, 128))
 WORKLIST_CHUNK = 2944
+# the general in-place leaf over make_columns' columns (0, 1, 2 forwarded,
+# 3 the new vertex): (base column or None for the carried rows, refs, pol,
+# ub, lb, exclude); paw's leaf is "paw"
+GENERAL_LEAVES = {
+    "k1": (3, (0,), (1,), (1,), (), ()),
+    "paw": (3, (0, 1), (0, 0), (), (), (0, 1)),
+    "k2-lb": (1, (3, 0), (1, 0), (3,), (2,), ()),
+    "k3-carried": (None, (3, 0, 2), (1, 1, 0), (3,), (1,), (2,)),
+    "k3": (2, (0, 1, 3), (1, 0, 0), (0, 1), (), (3,)),
+}
+# (out_cap, cap of the base, cap of every reference) of its parity: a warp
+# a row, rows off 16-byte boundaries, a block a row
+GENERAL_SHAPES = ((128, 128, 256), (130, 1024, 1024), (1030, 2048, 2048),
+                  (2048, 2048, 128))
 # (B, cap_a, k, cap_b) of the k-reference kernel; the last stack (3 x 32768
 # keys) is past shared memory and takes the global-memory search. Each shape
 # runs every polarity of MULTI_POLS (k = len(pol)) bit for bit, and is timed
@@ -1624,6 +1638,49 @@ def _parity_worklist(K, report, gen, out_cap, cap_a, cap_b):
               f"{WORKLIST_CHUNK}, equal to the plain version", flush=True)
 
 
+def make_columns(gen, parents: int, nv: int):
+    """Three columns a parent forwards, (parents,) vertex ids below ``nv``
+    made on the card from ``gen``, one in nine 0."""
+    cols = torch.randint(1, nv, (3, parents), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    zero = torch.rand((3, parents), generator=gen, device=DEVICE) < 1 / 9
+    return tuple(torch.where(zero, 0, cols))
+
+
+def _parity_multi_worklist(K, report, gen, out_cap, cap_a, cap_b):
+    """The general in-place count leaf over every chunk of a worklist (full
+    chunks, a short last one, dead rows), each leaf of GENERAL_LEAVES, into
+    one int64 from 2^31 - 5, against its plain version on the same card
+    tensors: equal; one launch a chunk."""
+    total, items = 3 * WORKLIST_CHUNK + WORKLIST_CHUNK // 3, 4 * WORKLIST_CHUNK
+    ip, ix, rows2, src, verts2 = worklist_operands(gen, 64, out_cap, max(cap_a, cap_b),
+                                                   total, items)
+    cols = make_columns(gen, 64, ip.shape[0] - 1)
+    for name, (base, refs, pol, ub, lb, excl) in GENERAL_LEAVES.items():
+        caps_b = (cap_b,) * len(refs)
+        cap = min(cap_a, out_cap) if base is None else cap_a   # a carried row's width
+        got = torch.tensor(2**31 - 5, dtype=torch.int64, device=DEVICE)
+        want = got.clone()
+        n = K.intersect_multi.launches
+        for lo in range(0, total, WORKLIST_CHUNK):
+            m = min(WORKLIST_CHUNK, total - lo)
+            args = (ip, ix, rows2, src, verts2, cols, lo, m)
+            K.intersect_multi_count_worklist(*args, got, base, cap, refs, caps_b, pol, ub,
+                                             lb, excl)
+            K.intersect_multi_count_worklist_ref(*args, want, base, cap, refs, caps_b, pol,
+                                                 ub, lb, excl)
+        err = abs(int(got) - int(want))
+        report.setdefault("intersect_multi_count_worklist", {"max_abs_err": 0})
+        _record(report, "intersect_multi_count_worklist", err)
+        label = (f"intersect_multi_count_worklist {name} out_cap={out_cap} "
+                 f"caps=({cap},{cap_b})")
+        if err or K.intersect_multi.launches - n != -(-total // WORKLIST_CHUNK):
+            raise SystemExit(f"[parity] MISMATCH {label}: {int(got)} != {int(want)}, "
+                             f"{K.intersect_multi.launches - n} launches")
+        print(f"[parity] {label}: {int(got) - 2**31 + 5} over {total} items in chunks of "
+              f"{WORKLIST_CHUNK}, equal to the plain version", flush=True)
+
+
 def phase_parity() -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.kernels import bitmap as BM
@@ -1653,6 +1710,10 @@ def phase_parity() -> dict:
     if hasattr(K, "intersect_count_worklist"):
         for shape in WORKLIST_SHAPES:
             _parity_worklist(K, report, gen, *shape)
+    if hasattr(K, "intersect_multi_count_worklist"):
+        for shape in GENERAL_SHAPES:
+            _parity_multi_worklist(K, report, gen, *shape)
+        _time_multi_worklist_leaf(report)
     return report
 
 
@@ -1808,14 +1869,180 @@ def _time_worklist_leaf(report: dict) -> None:
           f"sliced leaf's; {_times_text(times)}, {plain_ms:.4f} ms plain, the sliced leaf "
           f"{sliced_ms:.4f} ms a call, bound {bound_ms:.6f} ms ({a_keys} + {b_keys} keys "
           f"below the bounds)", flush=True)
+    if hasattr(K, "intersect_multi_count_worklist"):
+        # the same leaf as the general in-place leaf's carried form: whether
+        # it could take this leaf's calls at no loss
+        def general(total):
+            return K.intersect_multi_count_worklist(ip, ix, rows2, src, verts2, (), lo, m,
+                                                    total, None, cap_a, (0,), (cap_b,),
+                                                    (0,) if sub else (1,), (0,))
+        if int(general(torch.zeros_like(acc))) != got:
+            raise SystemExit(f"[worklist] MISMATCH mico 5C leaf, general form: "
+                             f"{int(general(torch.zeros_like(acc)))} != {got}")
+        g_times = kernel_times(lambda: general(acc))
+        print(f"[worklist] the same 5C leaf through the general in-place kernel: count "
+              f"{got}; {_times_text(g_times)}", flush=True)
+        report["intersect_count_worklist"]["general_device_ms"] = g_times["device_ms"]
     report["intersect_count_worklist"].update(**times, plain_ms=plain_ms,
                                               bound_ms=bound_ms, bound_by="bytes",
                                               sliced_ms=sliced_ms, library_ms=None)
 
 
+def check_multi_worklist_leaves(run, chunk: int):
+    """(run(), {(carried, cap_a, caps_b, pol, m == chunk): [calls, one
+    call's arguments]}) of the engine's general in-place leaf calls during
+    ``run``, whose runner slices waves of ``chunk`` items. The first call
+    of each shape is checked on the card against the plain version on the
+    same tensors: the count it adds must be the plain version's, exactly."""
+    from repro_torch.kernels import intersect as K
+    from repro_torch.mining import engine
+    shapes, saved = {}, getattr(engine, "xlevel_count_worklist", None)
+    if saved is None:
+        return run(), shapes
+
+    def leaf(*args):
+        ip, ix, rows2, src, verts2, cols, lo, m, acc, base, cap_a, refs, caps_b, pol = args[:14]
+        seen = shapes.get(shape := (base is None, cap_a, caps_b, pol, m == chunk))
+        if seen:
+            seen[0] += 1
+            return saved(*args)
+        want = int(K.intersect_multi_count_worklist_ref(*args[:8], acc.clone(), *args[9:]))
+        got = int(saved(*args))
+        if got != want:
+            raise SystemExit(f"[main] MISMATCH general in-place leaf {shape}: {got} != "
+                             f"the plain version's {want}")
+        shapes[shape] = [1, args]
+        return acc
+    engine.xlevel_count_worklist = leaf
+    try:
+        return run(), shapes
+    finally:
+        engine.xlevel_count_worklist = saved
+
+
+def _kernels_a_call(fn, reps: int = 20) -> float:
+    """Device kernels (memory copies and sets included) one call of ``fn()``
+    issues, by torch.profiler's CUDA activity over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / reps
+
+
+def _window_keys_csr(ip, ix, ids, cap: int, lb, ub) -> int:
+    """Keys inside (lb, ub) of the CSR rows of ``ids`` cut at ``cap``."""
+    start, deg = ip[ids.long()].long(), (ip[ids.long() + 1] - ip[ids.long()]).long()
+    col = torch.arange(cap, device=DEVICE)
+    keys = ix[(start[:, None] + col).clamp(max=ix.shape[0] - 1)]
+    return int(((col < deg[:, None]) & (keys > lb[:, None]) & (keys < ub[:, None])).sum())
+
+
+def _time_multi_worklist_leaf(report: dict) -> None:
+    """The general in-place leaf's kernel at paw's leaf shape on the
+    benchmark's mico twin (``bench/configs/mico.json``, its edges in
+    generated order): paw counted, each leaf shape checked against the
+    plain version (check_multi_worklist_leaves), then the operands of the
+    commonest full-chunk shape of its leaf calls: its times (one kernel a
+    call, which kernel_times checks), its plain version's, and the
+    parent's sliced leaf on the same chunk (the forwarded columns gathered
+    through src, the bound, the stacks, the k-reference count kernel, the
+    int64 sum), which must count the same; the device kernels a call of
+    each issues. Bound: the bytes each item needs, its base row's and its
+    references' keys inside its bounds (rows that items share counted for
+    each), src and each column it reads once, 8 bytes written."""
+    from bench import graphs as bench_graphs
+    from repro_torch import Miner
+    from repro_torch.graph.csr import build_csr
+    from repro_torch.kernels import intersect as K
+    config = json.loads((ROOT / "bench" / "configs" / "mico.json").read_text())
+    edges, nv = bench_graphs.edges_of(config, 1.0, ROOT / "build" / "bench")
+    miner = Miner(build_csr(edges, num_vertices=nv, undirected=True), device=DEVICE)
+    chunk = miner.runner.chunk
+    got_paw, shapes = check_multi_worklist_leaves(lambda: miner.count("paw"), chunk)
+    calls = sum(n for n, _ in shapes.values())
+    shape, (n, args) = max(((k, v) for k, v in shapes.items() if k[4]),
+                           key=lambda kv: kv[1][0])
+    ip, ix, rows2, src, verts2, cols, lo, m, _, base, cap_a, refs, caps_b, pol, ub, lb, \
+        excl = args
+    acc = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    vcol = len(cols)
+
+    def worklist(total):
+        return K.intersect_multi_count_worklist(*args[:8], total, *args[9:])
+
+    def plain(total):
+        return K.intersect_multi_count_worklist_ref(*args[:8], total, *args[9:])
+
+    def sliced():
+        s_ = src[lo: lo + chunk].long()
+        live = torch.arange(chunk, device=DEVICE) < m
+        get = {c: torch.where(live, cols[c][s_], 0) for c in range(vcol)
+               if cols[c] is not None}
+        get[vcol] = torch.where(live, verts2[lo: lo + chunk], 0)
+        base_kw = dict(a=rows2[s_, :cap_a]) if base is None \
+            else dict(va=get[base], cap_a=cap_a)
+        bound = torch.full((chunk,), SENTINEL, dtype=torch.int32, device=DEVICE)
+        for c in ub:
+            bound = torch.minimum(bound, get[c])
+        bound = torch.where(torch.arange(chunk, device=DEVICE) < m, bound, 0)
+        lbound = None
+        for c in lb:
+            lbound = get[c] if lbound is None else torch.maximum(lbound, get[c])
+        ex = torch.stack([get[e] for e in excl], dim=1) if excl else None
+        return K.intersect_multi_csr(ip, ix, torch.stack([get[j] for j in refs]), caps_b,
+                                     pol, **base_kw, bounds=bound, lbounds=lbound,
+                                     excludes=ex).long().sum()
+    got = int(worklist(torch.zeros_like(acc)))
+    want = int(plain(torch.zeros_like(acc)))
+    if not got == want == int(sliced()):
+        raise SystemExit(f"[worklist] MISMATCH mico paw leaf: {got}, plain {want}, "
+                         f"sliced {int(sliced())}")
+    times = kernel_times(lambda: worklist(acc))
+    plain_ms = cuda_ms(lambda: plain(acc.clone()))
+    sliced_ms = cuda_ms(sliced)
+    kernels = (_kernels_a_call(lambda: worklist(acc)), _kernels_a_call(sliced))
+    s_ = src[lo: lo + m].long()
+    ids = {c: cols[c][s_] for c in range(vcol) if cols[c] is not None}
+    ids[vcol] = verts2[lo: lo + m]
+    hi = torch.full((m,), SENTINEL, dtype=torch.int32, device=DEVICE)
+    for c in ub:
+        hi = torch.minimum(hi, ids[c])
+    low = torch.full((m,), -1, dtype=torch.int32, device=DEVICE)
+    for c in lb:
+        low = torch.maximum(low, ids[c])
+    if base is None:
+        a = rows2[s_, :cap_a]
+        a_keys = int(((a > low[:, None]) & (a < hi[:, None])).sum())
+    else:
+        a_keys = _window_keys_csr(ip, ix, ids[base], cap_a, low, hi)
+    b_keys = sum(_window_keys_csr(ip, ix, ids[j], cap, low, hi)
+                 for j, cap in zip(refs, caps_b))
+    read_cols = {*refs, *ub, *lb, *excl} | ({base} if base is not None else set())
+    bound_ms = ((a_keys + b_keys) * 4 + m * 4 * (1 + len(read_cols)) + 8) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"[worklist] bench mico twin paw = {got_paw}; its in-place leaf, {n} of {calls} "
+          f"calls at B {m}, cap_a {cap_a}{' (carried)' if base is None else ''}, caps_b "
+          f"{caps_b}, pol {pol}: count {got} as the plain version's and the sliced leaf's; "
+          f"{_times_text(times)}, {plain_ms:.4f} ms plain, the sliced leaf {sliced_ms:.4f} "
+          f"ms a call; device kernels a call {kernels[0]:g} in place, {kernels[1]:g} "
+          f"sliced; bound {bound_ms:.6f} ms ({a_keys} + {b_keys} keys in the windows); "
+          f"shapes {sorted((str(k), v[0]) for k, v in shapes.items())}", flush=True)
+    report.setdefault("intersect_multi_count_worklist", {"max_abs_err": 0}).update(
+        **times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        sliced_ms=sliced_ms, kernels_a_call=kernels[0], sliced_kernels_a_call=kernels[1],
+        library_ms=None)
+
+
 def phase_main_path(graphs: dict, report: dict):
     """Drive the port's Miner; every count must equal the JAX package's, and
-    each in-place leaf shape its plain version's (check_worklist_leaves);
+    each in-place leaf shape its plain version's (check_worklist_leaves,
+    check_multi_worklist_leaves);
     then time the in-place leaf at the benchmark's mico 5C leaf shape, after
     the main path's launches are read. Returns (per-query results, launches
     per count-path kernel)."""
@@ -1830,9 +2057,11 @@ def phase_main_path(graphs: dict, report: dict):
         miner = Miner(graphs[name, scale], device=DEVICE)
         for query, want in queries:
             execs = dict(miner.runner.level_execs)
-            (counts[name, scale, query], gathers), _ = check_worklist_leaves(
-                lambda: count_gathers(
-                    lambda: _mine(miner, kernels, f"{name} x{scale}", query, want)),
+            ((counts[name, scale, query], gathers), _), _ = check_multi_worklist_leaves(
+                lambda: check_worklist_leaves(
+                    lambda: count_gathers(
+                        lambda: _mine(miner, kernels, f"{name} x{scale}", query, want)),
+                    miner.runner.chunk),
                 miner.runner.chunk)
             level2 = miner.runner.level_execs.get(("expand", 2), 0) \
                 - execs.get(("expand", 2), 0)
@@ -3061,6 +3290,7 @@ def phase_bitmap(graphs: dict) -> dict:
 # which wrapper instantiated it
 KERNEL_OWNERS = (
     (r"level_kernel<[^,]*MarkLane", "intersect_mark"),
+    (r"level_kernel<[^>]*SumInto", "intersect_multi_count_worklist"),
     (r"level_kernel<[^,]*MultiLane", "intersect_multi"),
     (r"level_kernel<[^,]*AggLane", "intersect_multi_agg"),
     (r"count_kernel<[^>]*WorklistRows", "intersect_count_worklist"),

@@ -26,6 +26,9 @@
 //   repro_intersect_multi_csr (_multi_kernel): k-reference mark and counts,
 //                             contract further down; the _csr entry (general
 //                             levels) reads the references from the CSR
+//   repro_intersect_multi_count_worklist (no TPU kernel): a general count
+//                             leaf read in place from its parent's compacted
+//                             worklist, summed into one int64; note at the end
 //   repro_intersect_multi_agg <- repro/kernels/intersect.py:
 //   repro_intersect_multi_agg_csr  intersect_multi_agg_pallas
 //                             (_multi_agg_kernel): the k-reference level with
@@ -373,7 +376,51 @@ struct RefWindows {
   const float* vals[kMaxRefs];
   int n[kMaxRefs];
   int src_lo[kMaxRefs];   // a block a row: each window's lower end
+  int excl[kMaxRefs];     // the row's excludes, where Items stages them
   int a_lo, a_hi;
+};
+
+// Where a row's bounds and excludes come from (the level kernel's Items):
+//   ItemArrays     (B,) bounds and lbounds (NULL: SENTINEL, -1) and the
+//                  (B, n_excl) excludes, in device memory;
+//   WorklistItems  columns of a worklist's items (WorklistIds): the upper
+//                  bound the least of the ub columns' vertices (SENTINEL
+//                  when none), the lower bound the greatest of the lb
+//                  columns' (-1 when none), one exclude a column of excl.
+// excl(i, slot, rank) returns row i's excludes; WorklistItems writes them
+// into slot (shared memory), thread rank e the e-th, so the caller calls it
+// with every thread of the row's team before the barrier that follows.
+struct ItemArrays {
+  const int* bounds;
+  const int* lbounds;
+  const int* excludes;
+  int n_excl;
+  __device__ __forceinline__ int ub(int i) const { return bounds ? bounds[i] : kSentinel; }
+  __device__ __forceinline__ int lb(int i) const { return lbounds ? lbounds[i] : -1; }
+  __device__ __forceinline__ const int* excl(int i, int*, int) const {
+    return n_excl ? excludes + static_cast<size_t>(i) * n_excl : nullptr;
+  }
+};
+
+struct WorklistItems {
+  WorklistIds ids;
+  unsigned ub_cols, lb_cols;   // bit c: column c bounds the keys
+  int excl_col[kMaxRefs];
+  int n_excl;
+  __device__ __forceinline__ int ub(int i) const {
+    int u = kSentinel;
+    for (unsigned m = ub_cols; m; m &= m - 1) u = min(u, ids.at(__ffs(m) - 1, i));
+    return u;
+  }
+  __device__ __forceinline__ int lb(int i) const {
+    int l = -1;
+    for (unsigned m = lb_cols; m; m &= m - 1) l = max(l, ids.at(__ffs(m) - 1, i));
+    return l;
+  }
+  __device__ __forceinline__ const int* excl(int i, int* slot, int rank) const {
+    if (rank < n_excl) slot[rank] = ids.at(excl_col[rank], i);
+    return slot;
+  }
 };
 
 // The keys of slots s0 .. s0 + 3 of a row (0 past [a_lo, a_hi)): one
@@ -395,20 +442,20 @@ __device__ __forceinline__ void load_group(const int* __restrict__ keys, int s0,
   }
 }
 
-template <class Lane, bool kWarp, class MarkT, class ARows, class BRows>
-__global__ void level_kernel(ARows A, BRows Bs, const int* __restrict__ bounds,
-                             const int* __restrict__ lbounds,
-                             const int* __restrict__ excludes,
+template <class Lane, bool kWarp, class MarkT, class ARows, class BRows, class Items,
+          class Out>
+__global__ void level_kernel(ARows A, BRows Bs, Items items,
                              const float* __restrict__ scale, MarkT* __restrict__ mark,
-                             int* __restrict__ counts, float* __restrict__ vals,
-                             int rows, int cap_a, int k_arg, int n_inter, int n_excl,
-                             int stage_words, int op) {
+                             Out out, float* __restrict__ vals, int rows, int cap_a,
+                             int k_arg, int n_inter, int stage_words, int op) {
   constexpr bool kValues = Lane::kValues;
   constexpr bool kMark = !std::is_void<MarkT>::value;
   // a mark without values is written a 4-slot word at a time from A's
   // 16-byte aligned padded row
   static_assert(kValues || !kMark || ARows::kPadded, "a word mark needs padded A rows");
+  static_assert(!Out::kSum || !(kValues || kMark), "a summed count has no mark or values");
   const int k = Lane::kRefs ? Lane::kRefs : k_arg;
+  const int n_excl = items.n_excl;
   extern __shared__ __align__(16) int smem[];
   __shared__ RefWindows wins_all[kWarp ? kRowWarps : 1];
   __shared__ int warp_sums[32];
@@ -416,17 +463,22 @@ __global__ void level_kernel(ARows A, BRows Bs, const int* __restrict__ bounds,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = kWarp ? blockIdx.x * kRowWarps + warp : blockIdx.x;
-  if (kWarp && row >= rows) return;   // a whole warp; no block barrier follows
+  // a warp past the last row leaves (no block barrier follows), unless the
+  // block's sum waits for it: then it is a dead row
+  if (kWarp && !Out::kSum && row >= rows) return;
+  const bool here = !kWarp || row < rows;
   const int rank = kWarp ? lane : static_cast<int>(threadIdx.x);
   const int team = kWarp ? 32 : static_cast<int>(blockDim.x);
   RefWindows& w = wins_all[kWarp ? warp : 0];
   int* slice = smem + (kWarp ? warp * stage_words : 0);
-  const int ub = bounds ? bounds[row] : kSentinel;
-  const int lb = lbounds ? lbounds[row] : -1;
+  const int ub = here ? items.ub(row) : 0;
+  const int lb = here ? items.lb(row) : -1;
   const bool dead = static_cast<long long>(ub) <= static_cast<long long>(lb) + 1;
   Row a{};
   int a_lo = 0, a_hi = 0;
+  const int* __restrict__ erow = nullptr;
   if (!dead) {
+    erow = items.excl(row, w.excl, rank);   // visible after the barrier below
     a = A.row(0, row);
     int used = 0;
     if constexpr (kWarp) {
@@ -519,8 +571,6 @@ __global__ void level_kernel(ARows A, BRows Bs, const int* __restrict__ bounds,
   }
   if constexpr (!kWarp) __syncthreads();
 
-  const int* __restrict__ erow =
-      n_excl ? excludes + static_cast<size_t>(row) * n_excl : nullptr;
   int kept_here = 0;
   double acc = 0.0;
   if constexpr (!kValues) {
@@ -611,7 +661,14 @@ __global__ void level_kernel(ARows A, BRows Bs, const int* __restrict__ bounds,
         if (s < a_lo || s >= a_hi) mrow[s] = 0;
     }
   }
-  if constexpr (kWarp) {
+  if constexpr (Out::kSum) {
+    // the block's rows together: one atomic a block
+    int sum = 0;
+    block_sum_to(kept_here, warp_sums, &sum);
+    if (threadIdx.x == 0 && sum != 0)
+      atomicAdd(out.total, static_cast<unsigned long long>(sum));
+  } else if constexpr (kWarp) {
+    int* __restrict__ counts = out.counts;
     if (counts) {   // never NULL with the value lane
       for (int off = 16; off > 0; off >>= 1) {
         kept_here += __shfl_down_sync(kFull, kept_here, off);
@@ -623,7 +680,7 @@ __global__ void level_kernel(ARows A, BRows Bs, const int* __restrict__ bounds,
       if constexpr (kValues) vals[row] = static_cast<float>(acc);
     }
   } else {
-    block_sum_to(kept_here, warp_sums, counts ? counts + row : nullptr);
+    block_sum_to(kept_here, warp_sums, out.counts ? out.counts + row : nullptr);
     if constexpr (kValues) block_agg_to(acc, op, warp_vals, vals + row);
   }
 }
@@ -642,12 +699,11 @@ int smem_optin_bytes() {
   return cached[dev];
 }
 
-template <class Lane, bool kWarp, class MarkT, class ARows, class BRows>
-int launch_level_as(ARows A, BRows Bs, const int* bounds, const int* lbounds,
-                    const int* excludes, const float* scale, MarkT* mark,
-                    int* counts, float* vals, int rows, int cap_a,
-                    const int* caps, int k, int n_inter, int n_excl, int op,
-                    cudaStream_t st) {
+template <class Lane, bool kWarp, class MarkT, class ARows, class BRows, class Items,
+          class Out>
+int launch_level_as(ARows A, BRows Bs, Items items, const float* scale, MarkT* mark,
+                    Out out, float* vals, int rows, int cap_a, const int* caps, int k,
+                    int n_inter, int op, cudaStream_t st) {
   // the staging budget: a quarter of the block maximum, shared by the rows
   // of a block; each ref's row needs its cap's keys (and values if INTER
   // with the value lane)
@@ -660,7 +716,7 @@ int launch_level_as(ARows A, BRows Bs, const int* bounds, const int* lbounds,
   const size_t bytes = static_cast<size_t>(teams) * stage_words * sizeof(int);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        level_kernel<Lane, kWarp, MarkT, ARows, BRows>,
+        level_kernel<Lane, kWarp, MarkT, ARows, BRows, Items, Out>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -670,9 +726,25 @@ int launch_level_as(ARows A, BRows Bs, const int* bounds, const int* lbounds,
                             : (Lane::kValues && cap_a >= 2048 ? 256 : 128);
   const int blocks = kWarp ? (rows + kRowWarps - 1) / kRowWarps : rows;
   level_kernel<Lane, kWarp><<<blocks, threads, bytes, st>>>(
-      A, Bs, bounds, lbounds, excludes, scale, mark, counts, vals, rows, cap_a, k,
-      n_inter, n_excl, stage_words, op);
+      A, Bs, items, scale, mark, out, vals, rows, cap_a, k, n_inter, stage_words, op);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Lane, class MarkT, class ARows, class BRows, class Items, class Out>
+int launch_level_of(ARows A, BRows Bs, Items items, const float* scale, MarkT* mark,
+                    Out out, float* vals, int rows, int cap_a, const int* caps, int k,
+                    int n_inter, int op, void* stream) {
+  if (k < 1 || k > kMaxRefs || (Lane::kRefs && k != Lane::kRefs) || n_inter < 0 ||
+      n_inter > k || items.n_excl < 0 || op < 0 || op > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool short_rows = cap_a <= kWarpRowCap;
+  for (int r = 0; r < k; ++r) short_rows = short_rows && caps[r] <= kWarpRowCap;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (short_rows)
+    return launch_level_as<Lane, true>(A, Bs, items, scale, mark, out, vals, rows, cap_a,
+                                       caps, k, n_inter, op, st);
+  return launch_level_as<Lane, false>(A, Bs, items, scale, mark, out, vals, rows, cap_a,
+                                      caps, k, n_inter, op, st);
 }
 
 template <class Lane, class MarkT, class ARows, class BRows>
@@ -681,19 +753,9 @@ int launch_level(ARows A, BRows Bs, const int* bounds, const int* lbounds,
                  int* counts, float* vals, int rows, int cap_a,
                  const int* caps, int k, int n_inter, int n_excl, int op,
                  void* stream) {
-  if (k < 1 || k > kMaxRefs || (Lane::kRefs && k != Lane::kRefs) || n_inter < 0 ||
-      n_inter > k || n_excl < 0 || op < 0 || op > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  bool short_rows = cap_a <= kWarpRowCap;
-  for (int r = 0; r < k; ++r) short_rows = short_rows && caps[r] <= kWarpRowCap;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (short_rows)
-    return launch_level_as<Lane, true>(A, Bs, bounds, lbounds, excludes, scale, mark,
-                                       counts, vals, rows, cap_a, caps, k, n_inter,
-                                       n_excl, op, st);
-  return launch_level_as<Lane, false>(A, Bs, bounds, lbounds, excludes, scale, mark,
-                                      counts, vals, rows, cap_a, caps, k, n_inter,
-                                      n_excl, op, st);
+  return launch_level_of<Lane>(A, Bs, ItemArrays{bounds, lbounds, excludes, n_excl},
+                               scale, mark, RowCounts{counts}, vals, rows, cap_a, caps, k,
+                               n_inter, op, stream);
 }
 
 
@@ -1205,4 +1267,79 @@ extern "C" int repro_intersect_multi_agg_csr(
   return launch_level<AggLane>(CsrRows{indptr, indices, edge_values, va, rows, {cap_a}},
                                Bs, bounds, lbounds, excludes, scale, none, counts, vals,
                                rows, cap_a, Bs.caps, k, n_inter, n_excl, op, stream);
+}
+
+// The general in-place count leaf: repro_intersect_multi_count_worklist. It
+// replaces no TPU kernel: the JAX engine slices each chunk of a leaf out of
+// its parent's worklist with XLA ops, and so did the engine here, with
+// about fifteen PyTorch kernels around the k-reference count (the new
+// vertex column, the live mask, one gather a forwarded column, the bound,
+// the stacks of references and excludes, the int64 cast and the sum). This
+// entry reads the worklist where the parent's expand left it. Item i of the
+// chunk [lo, lo + m) has its vertex of column c at verts2[lo + i] when c is
+// the parent's new vertex (vcol), else at col_c[src[lo + i]] (a column the
+// parent forwards, its wave's (B,) ids). Its base row is rows2[src[lo + i],
+// :cap_a] (base -1: the parent's carried survivors, WorklistRows) or the
+// neighbours of column base's vertex cut at cap_a; its references are the
+// neighbours of each column of the inter mask (INTER) and of the sub mask
+// (SUB), column c cut at cap_c; its upper bound the least vertex of the ub
+// mask's columns (SENTINEL when none), its lower bound the greatest of the
+// lb mask's (-1 when none), and its excludes the vertices of the excl
+// mask's columns. The counts of the m rows are summed into *total: the
+// multi_csr count of the sliced chunk, summed.
+//
+// Bound: bytes, as the level kernel's: each item's base window and
+// reference windows, 4 bytes of src and of each column it reads, 8 bytes
+// written a block.
+//
+// Design: level_kernel's template with WorklistCsrRows (or WorklistRows)
+// as A, WorklistCsrRows as the references, WorklistItems as the bounds and
+// excludes, and SumInto as its output: the same warp-a-row and block-a-row
+// paths, so the counts are the sliced leaf's. A row's excludes are read
+// once into shared memory, as its team's first step; a block's rows sum in
+// shared memory and thread 0 adds the block's total into the int64 with one
+// 64-bit atomic: no per-row counts, no cast and no reduction launch.
+extern "C" int repro_intersect_multi_count_worklist(
+    const int* indptr, const int* indices, const int* rows2, const int* src,
+    const int* verts2, const int* col0, const int* col1, const int* col2,
+    const int* col3, const int* col4, const int* col5, const int* col6,
+    const int* col7, long long* total, int lo, int m, int out_cap, int cap_a, int base,
+    int vcol, int inter, int sub, int ub, int lb, int excl, int cap0, int cap1,
+    int cap2, int cap3, int cap4, int cap5, int cap6, int cap7, void* stream) {
+  const int* cols[kMaxCols] = {col0, col1, col2, col3, col4, col5, col6, col7};
+  const int caps[kMaxCols] = {cap0, cap1, cap2, cap3, cap4, cap5, cap6, cap7};
+  const int all = (1 << kMaxCols) - 1;
+  if (lo < 0 || m < 0 || cap_a < 1 || vcol < 0 || vcol >= kMaxCols || base < -1 ||
+      base >= kMaxCols || ((inter | sub | ub | lb | excl) & ~all) || (inter & sub) ||
+      (base < 0 && (!rows2 || cap_a > out_cap)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // every column read is the new vertex or a forwarded column
+  const int used = inter | sub | ub | lb | excl | (base >= 0 ? 1 << base : 0);
+  for (int c = 0; c < kMaxCols; ++c)
+    if ((used >> c & 1) && c != vcol && !cols[c]) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  const WorklistIds ids{src + lo, verts2 + lo,
+                        {col0, col1, col2, col3, col4, col5, col6, col7}, vcol};
+  WorklistCsrRows Bs{indptr, indices, ids, {}, {}};
+  int k = 0;
+  for (int pass = 0; pass < 2; ++pass)
+    for (int c = 0; c < kMaxCols; ++c)
+      if ((pass ? sub : inter) >> c & 1) {
+        if (k == kMaxRefs) return static_cast<int>(cudaErrorInvalidValue);
+        Bs.col[k] = c;
+        Bs.caps[k++] = caps[c];
+      }
+  const int n_inter = __builtin_popcount(static_cast<unsigned>(inter));
+  WorklistItems items{ids, static_cast<unsigned>(ub), static_cast<unsigned>(lb), {}, 0};
+  for (int c = 0; c < kMaxCols; ++c)
+    if (excl >> c & 1) items.excl_col[items.n_excl++] = c;
+  const SumInto out{reinterpret_cast<unsigned long long*>(total)};
+  void* none = nullptr;
+  if (base < 0)
+    return launch_level_of<MultiLane>(WorklistRows{rows2, src + lo, out_cap, cap_a}, Bs,
+                                      items, nullptr, none, out, nullptr, m, cap_a,
+                                      Bs.caps, k, n_inter, 0, stream);
+  return launch_level_of<MultiLane>(
+      WorklistCsrRows{indptr, indices, ids, {base}, {cap_a}}, Bs, items, nullptr, none,
+      out, nullptr, m, cap_a, Bs.caps, k, n_inter, 0, stream);
 }

@@ -60,7 +60,10 @@ __device__ __forceinline__ bool contains(const int* __restrict__ row, int n,
 //               exactly the live part of graph/csr.py:padded_rows;
 //   WorklistRows  item i of an expand level's compacted worklist: its packed
 //               survivor row src[i] of rows2 (B, out_cap), cut at cap, in
-//               place (SENTINEL after the survivors).
+//               place (SENTINEL after the survivors);
+//   WorklistCsrRows  the neighbours of a vertex of item i of such a worklist
+//               (WorklistIds: the level's new vertex or a column it
+//               forwards), operand r's column col[r], cut at caps[r].
 // kPadded tells the window search whether SENTINEL can sit inside a row.
 constexpr int kMaxRefs = 8;
 
@@ -105,6 +108,37 @@ struct WorklistRows {
   int out_cap, cap;
   __device__ __forceinline__ Row row(int, int i) const {
     return {rows2 + static_cast<size_t>(src[i]) * out_cap, nullptr, cap};
+  }
+};
+
+// The vertex ids of a worklist's items, read where the expand level left
+// them: column c of item i is verts[i] when c is the level's new vertex
+// (vcol), else cols[c][src[i]], the column the level forwards gathered
+// through src. src and verts start at the chunk's first item.
+constexpr int kMaxCols = 8;
+
+struct WorklistIds {
+  const int* src;
+  const int* verts;
+  const int* cols[kMaxCols];
+  int vcol;
+  __device__ __forceinline__ int at(int c, int i) const {
+    return c == vcol ? verts[i] : cols[c][src[i]];
+  }
+};
+
+struct WorklistCsrRows {
+  static constexpr bool kPadded = false;
+  const int* indptr;
+  const int* indices;
+  WorklistIds ids;
+  int col[kMaxRefs];
+  int caps[kMaxRefs];
+  __device__ __forceinline__ Row row(int r, int i) const {
+    const int v = ids.at(col[r], i);
+    const int start = indptr[v];
+    const int deg = indptr[v + 1] - start;
+    return {indices + start, nullptr, deg < caps[r] ? deg : caps[r]};
   }
 };
 

@@ -35,6 +35,11 @@ turns ``intersect_expand_csr``'s rows into the level's worklist.
                                fresh base) as vertex ids       -> counts (B,)
   ``intersect_multi_mark_csr`` general expand levels: a padded base, the k
                                references from the CSR      -> bool (B, cap_a)
+  ``intersect_multi_count_worklist`` a general count leaf read in place
+                               from its parent's compacted worklist, its
+                               vertices the parent's new vertex and the
+                               columns it forwards (no TPU kernel) -> adds to
+                               an int64 total; launches in ``intersect_multi``
   ``intersect_multi_agg_csr``  the aggregate leaf: the k references (and a
                                fresh base) as vertex ids, their values from
                                the CSR's value plane; no mark -> (counts, vals)
@@ -65,6 +70,7 @@ from repro_torch.graph.csr import csr_rows
 from .build import launch
 
 MAX_REFS = 8     # kMaxRefs of csrc/intersect.cu: references per k-ref level
+MAX_COLS = 8     # kMaxCols of csrc/rows.cuh: columns of a worklist's items
 AGG_IDS = {op: i for i, op in enumerate(AGG_OPS)}   # op operand of the agg kernel
 
 
@@ -191,6 +197,111 @@ def intersect_multi_mark_csr_ref(indptr, indices, a, vbs, caps_b, pol, bounds=No
     gathered, then ``intersect_multi_ref``'s mark as bool."""
     return level_keep(a, _csr_stack(indptr, indices, vbs, caps_b), pol, bounds, lbounds,
                       excludes)
+
+
+def intersect_multi_count_worklist_ref(indptr, indices, rows2, src, verts2, cols, lo: int,
+                                       m: int, total, base, cap_a: int, refs, caps_b, pol,
+                                       ub=(), lb=(), exclude=()):
+    """Plain torch version of ``intersect_multi_count_worklist``: the
+    chunk's columns gathered through ``src`` (the new vertex sliced), then
+    the general CSR count leaf's plain version, its sum added to ``total``."""
+    s = src[lo: lo + m].long()
+
+    def col(c):
+        return verts2[lo: lo + m] if c == len(cols) else cols[c][s]
+    base_kw = dict(a=rows2[s, :cap_a]) if base is None else dict(va=col(base), cap_a=cap_a)
+    bounds = lbounds = excludes = None
+    if ub:
+        bounds = torch.stack([col(c) for c in ub]).amin(dim=0)
+    if lb:
+        lbounds = torch.stack([col(c) for c in lb]).amax(dim=0)
+    if exclude:
+        excludes = torch.stack([col(c) for c in exclude], dim=1)
+    counts = intersect_multi_csr_ref(indptr, indices, torch.stack([col(c) for c in refs]),
+                                     caps_b, pol, **base_kw, bounds=bounds, lbounds=lbounds,
+                                     excludes=excludes)
+    total += counts.sum(dtype=torch.int64)
+    return total
+
+
+def intersect_multi_count_worklist(indptr, indices, rows2, src, verts2, cols, lo: int,
+                                   m: int, total, base, cap_a: int, refs, caps_b, pol,
+                                   ub=(), lb=(), exclude=()):
+    """A general count leaf read in place from its parent expand's
+    compacted worklist: adds the chunk's count to ``total`` and returns it.
+
+    ``src`` and ``verts2`` (items,) are the parent's worklist and ``cols``
+    the (B,) int32 columns its wave forwards, by column number (None for a
+    column the leaf does not read); column ``len(cols)`` is the parent's
+    new vertex. Item i of the chunk [lo, lo + m) reads column c at
+    ``cols[c][src[lo + i]]``, the new vertex at ``verts2[lo + i]``. Its base
+    is the neighbour list of column ``base``'s vertex cut at ``cap_a``, or,
+    with ``base`` None, the parent's carried survivors
+    ``rows2[src[lo + i], :cap_a]`` (``rows2`` (B, out_cap)). Its references
+    are the neighbour lists of columns ``refs`` cut at ``caps_b``, with an
+    INTER-first polarity ``pol``; its upper bound the least vertex of the
+    ``ub`` columns (none: SENTINEL), its lower bound the greatest of the
+    ``lb`` columns (none: -1), its excludes the vertices of the ``exclude``
+    columns. The count equals ``intersect_multi_csr`` on the sliced chunk,
+    summed. ``total`` is a 0-d int64 tensor; on the card the kernel adds to
+    it in place, one launch and no other kernel. ``src`` must index the
+    columns' rows (and ``rows2``'s) and the ids be vertices of the CSR:
+    checking them would cost a read of the device. Launches count in
+    ``intersect_multi.launches``."""
+    _check_csr(indptr, indices)
+    dev = indptr.device
+    items = _check_vertices("src", src, dev)
+    _check_tensor("verts2", verts2, (items,), torch.int32, dev)
+    _check_tensor("total", total, (), torch.int64, dev)
+    vcol = len(cols)
+    refs, caps_b, pol = tuple(refs), tuple(caps_b), tuple(pol)
+    k, n_inter = len(refs), sum(pol)
+    if not 1 <= k == len(caps_b) == len(pol) <= MAX_REFS or len(set(refs)) != k:
+        raise ValueError(f"refs {refs}, caps_b {caps_b}, pol {pol}: need 1 <= k distinct "
+                         f"columns == len(caps_b) == len(pol) <= {MAX_REFS}")
+    if set(pol) - {0, 1} or pol != (1,) * n_inter + (0,) * (k - n_inter):
+        raise ValueError(f"pol {pol} must be 1s (INTER) then 0s (SUB)")
+    for c in (*caps_b, cap_a):
+        _check_cap("cap", c)
+    used = {*refs, *ub, *lb, *exclude} | ({base} if base is not None else set())
+    if vcol >= MAX_COLS or not all(isinstance(c, int) and 0 <= c <= vcol for c in used):
+        raise ValueError(f"columns {sorted(used, key=str)} must lie in [0, {vcol}] "
+                         f"< {MAX_COLS}")
+    for c in used - {vcol}:
+        if cols[c] is None or cols[c].dim() != 1:
+            raise ValueError(f"column {c} must be a (B,) tensor, got {cols[c]!r}")
+        _check_tensor(f"column {c}", cols[c], tuple(cols[c].shape), torch.int32, dev)
+    if base is None:
+        if rows2 is None or rows2.dim() != 2:
+            raise ValueError("a carried base needs rows2 (B, out_cap)")
+        _check_tensor("rows2", rows2, tuple(rows2.shape), torch.int32, dev)
+        if cap_a > rows2.shape[1]:
+            raise ValueError(f"cap_a {cap_a} > rows2's width {rows2.shape[1]}")
+    if not (isinstance(lo, int) and isinstance(m, int) and 0 <= lo <= lo + m <= items):
+        raise ValueError(f"chunk [{lo}, {lo} + {m}) is not inside the {items} items")
+    if dev.type == "cpu":
+        return intersect_multi_count_worklist_ref(indptr, indices, rows2, src, verts2, cols,
+                                                  lo, m, total, base, cap_a, refs, caps_b,
+                                                  pol, ub, lb, exclude)
+    if dev.type != "cuda":
+        raise ValueError(f"no intersect kernel for device {dev}")
+    if m:
+        caps = [1] * MAX_COLS
+        for c, cap in zip(refs, caps_b):
+            caps[c] = cap
+
+        def mask(cs):
+            return sum(1 << c for c in set(cs))
+        carried = base is None
+        launch("intersect", "repro_intersect_multi_count_worklist", dev,
+               (indptr, indices, rows2 if carried else None, src, verts2,
+                *(cols[c] if c in used and c != vcol else None for c in range(MAX_COLS)),
+                total),
+               (lo, m, rows2.shape[1] if carried else 0, cap_a, -1 if carried else base,
+                vcol, mask(refs[:n_inter]), mask(refs[n_inter:]), mask(ub), mask(lb),
+                mask(exclude), *caps))
+        intersect_multi.launches += 1
+    return total
 
 
 def _check_rows(name: str, t: torch.Tensor, a: torch.Tensor, ndim: int = 2) -> None:

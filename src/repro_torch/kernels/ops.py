@@ -17,7 +17,8 @@ from .compact import compact_rows
 from .intersect import (expand_items, intersect_count, intersect_count_csr,
                         intersect_count_worklist, intersect_expand, intersect_expand_csr,
                         intersect_mark, intersect_mark_csr, intersect_multi,
-                        intersect_multi_agg, intersect_multi_agg_csr, intersect_multi_csr,
+                        intersect_multi_agg, intersect_multi_agg_csr,
+                        intersect_multi_count_worklist, intersect_multi_csr,
                         intersect_multi_mark_csr, intersect_sub_count_csr)
 from .svinter import vinter, vinter_grid
 
@@ -214,6 +215,24 @@ def xlevel_count_csr(indptr, indices, vbs, caps_b, pol, a=None, va=None, cap_a=N
     ``va`` at ``cap_a``: one launch of the k-reference kernel, no mark."""
     return intersect_multi_csr(indptr, indices, vbs, caps_b, pol, a, va, cap_a, bounds,
                                lbounds, excludes)
+
+
+def xlevel_count_worklist(indptr, indices, rows2, src, verts2, cols, lo: int, m: int,
+                          total, base, cap_a: int, refs, caps_b, pol, ub=(), lb=(),
+                          exclude=()):
+    """A general count leaf over the chunk [lo, lo + m) of its parent's
+    compacted worklist ``(src, verts2)``, read in place: its vertices are
+    the parent's new vertex (column ``len(cols)``, ``verts2[i]``) and the
+    columns the parent forwards (``cols[c][src[i]]``); its base the CSR row
+    of column ``base`` at ``cap_a`` (None: the carried ``rows2[src[i],
+    :cap_a]``), its references the CSR rows of columns ``refs`` at
+    ``caps_b`` with polarity ``pol``, its bounds and excludes those
+    columns' vertices. The count is added to the 0-d int64 ``total``. One
+    launch of the k-reference kernel, nothing sliced; the plain form off
+    the card."""
+    return intersect_multi_count_worklist(indptr, indices, rows2, src, verts2, cols, lo, m,
+                                          total, base, cap_a, refs, caps_b, pol, ub, lb,
+                                          exclude)
 
 
 def xlevel_compact_csr(indptr, indices, a, vbs, caps_b, pol, bounds=None,

@@ -21,13 +21,19 @@ column) crosses to the host, to size the next level's capacities; count
 levels leave one int64 partial per chunk on the device, summed and read
 once per run. Padded tail items carry bound 0, so they contribute nothing.
 
-A carried count leaf whose one INTER or SUB reference and one upper bound
-are its parent's new vertex (a clique's last level, diamond's SUB leaf)
-reads the parent's compacted worklist in place: one
-``ops.xcount_worklist`` launch a chunk, which adds the chunk's count into
-one int64 accumulator a leaf a run, with no chunk sliced and no torch op
-around it. Every other leaf, and the host path, ``record`` and the sharded
-runner, read sliced chunks.
+A count leaf under a device-compacted expand reads the parent's compacted
+worklist in place, with no chunk sliced and no torch op around its launch:
+one launch a chunk adds the chunk's count into one int64 accumulator a leaf
+a run. A carried leaf whose one INTER or SUB reference and one upper bound
+are the parent's new vertex (a clique's last level, diamond's SUB leaf)
+takes ``ops.xcount_worklist`` (the form ``carried``); any other leaf with
+at least one reference and one launch a call (paw's, 4-cycle's) the
+k-reference kernel's ``ops.xlevel_count_worklist`` (the form ``csr``),
+which reads the parent's new vertex and the columns it forwards through
+``src`` where the expand left them. Aggregate and tail leaves, residual
+branches, leaves with no reference, every other leaf under
+``fused_level=False``, the host path, ``record`` and the sharded runner
+read sliced chunks.
 
 A level runs in one of three shapes, as in the reference engine:
 
@@ -118,11 +124,12 @@ from repro_torch.core.batch import batch_compact_scan, compact_indices_scan
 from repro_torch.core.stream import LANE, SENTINEL, round_capacity
 from repro_torch.graph.csr import CSRGraph, padded_rows, padded_value_rows
 from repro_torch.kernels.compact import compact_rows
+from repro_torch.kernels.intersect import MAX_COLS, MAX_REFS
 from repro_torch.kernels.ops import (xcount_worklist, xinter, xinter_compact_csr,
                                      xinter_count, xinter_count_csr, xlevel_agg,
                                      xlevel_agg_csr, xlevel_compact, xlevel_compact_csr,
-                                     xlevel_count, xlevel_count_csr, xmark_csr,
-                                     xsub_compact_csr, xsub_count_csr)
+                                     xlevel_count, xlevel_count_csr, xlevel_count_worklist,
+                                     xmark_csr, xsub_compact_csr, xsub_count_csr)
 from repro_torch.obs import NO_SPAN, LegacyStatsView, Telemetry, activate
 from repro_torch.values import edge_value_lookup, prefix_scale
 
@@ -521,12 +528,13 @@ class WaveRunner:
 
     # ------------------------------------------------------------ traced dispatch
     def _dispatch(self, op: LevelOp, fn: Callable, args: tuple, items=None,
-                  caps_sig: tuple = (), host: bool = False, inplace: bool = False):
+                  caps_sig: tuple = (), host: bool = False, form: str | None = None):
         """Run one level executable. With tracing on, the call sits in a
         ``dispatch`` span (op kind and level, membership launches, items,
-        capacity signature, executable-cache hit, ``inplace`` for a leaf
-        read in place): the host's time to issue the level body's torch ops
-        and launches, not the card's. With tracing off: the bare call."""
+        capacity signature, executable-cache hit; ``inplace`` and the
+        leaf's ``form`` for a leaf read in place): the host's time to issue
+        the level body's torch ops and launches, not the card's. With
+        tracing off: the bare call."""
         tr = self.telemetry.tracer
         if not tr.enabled:
             return fn(*args)
@@ -541,8 +549,9 @@ class WaveRunner:
             attrs["caps"] = _caps_name(caps_sig)
         if host:
             attrs["host"] = True
-        if inplace:
+        if form is not None:
             attrs["inplace"] = True
+            attrs["form"] = form
         with tr.span("dispatch", cat="dispatch", **attrs):
             return fn(*args)
 
@@ -937,15 +946,28 @@ class WaveRunner:
         return fn
 
     @staticmethod
-    def _worklist_body(op: LevelOp, caps_sig: tuple, cap2: int):
-        """An in-place count leaf: one ``xcount_worklist`` launch over the
-        chunk [lo, lo + m) of the parent's worklist, into ``acc``."""
-        cap_b = caps_sig[0][1]
-        sub = bool(op.sub)
+    def _worklist_body(op: LevelOp, caps_sig: tuple, cap_base: int, form: str):
+        """An in-place count leaf: one launch over the chunk [lo, lo + m) of
+        the parent's worklist, into ``acc``: ``xcount_worklist`` (form
+        ``carried``) or ``xlevel_count_worklist`` (``csr``), which reads the
+        parent's forwarded columns ``cols`` through ``src``."""
+        caps = dict(caps_sig)
+        refs = op.inter + op.sub
+        caps_b = tuple(caps[j] for j in refs)
+        if form == "carried":
+            sub = bool(op.sub)
 
-        def fn(g, rows2, src, verts2, lo, m, acc):
-            return xcount_worklist(g.indptr, g.indices, rows2, src, verts2, lo, m, cap2,
-                                   cap_b, acc, sub)
+            def fn(g, rows2, src, verts2, cols, lo, m, acc):
+                return xcount_worklist(g.indptr, g.indices, rows2, src, verts2, lo, m,
+                                       cap_base, caps_b[0], acc, sub)
+            return fn
+        pol = (1,) * len(op.inter) + (0,) * len(op.sub)
+        base = None if op.use_carry else op.base
+
+        def fn(g, rows2, src, verts2, cols, lo, m, acc):
+            return xlevel_count_worklist(g.indptr, g.indices, rows2, src, verts2, cols, lo,
+                                         m, acc, base, cap_base, refs, caps_b, pol, op.ub,
+                                         op.lb, op.exclude)
         return fn
 
     def _plan_expand_host_fn(self, op: LevelOp, caps_sig: tuple, cap_base: int,
@@ -1223,8 +1245,8 @@ class WaveRunner:
             elif in_place:
                 self._note_slice(op, b, out_cap, cap2)
             for ch in in_place:
-                part = self._leaf_in_place(op, ch.op, id(ch), len(ch.plans), rows2, s_, v_,
-                                           t_, caps2, cap2)
+                part = self._leaf_in_place(op, ch.op, id(ch), len(ch.plans), cols, rows2,
+                                           s_, v_, t_, caps2, cap2)
                 if part is not None:
                     for i in ch.plans:
                         acc[i].append(part)
@@ -1249,8 +1271,8 @@ class WaveRunner:
                     return []
                 rows2, src, verts2, total, caps2, cap2, _ = exp
                 self._note_slice(op, b, out_cap, cap2)
-                part = self._leaf_in_place(op, child, id(child), 1, rows2, src, verts2,
-                                           total, caps2, cap2)
+                part = self._leaf_in_place(op, child, id(child), 1, cols, rows2, src,
+                                           verts2, total, caps2, cap2)
                 return [] if part is None else [part]
             if self.device_compact:
                 chunks = self._expand_chunks_device(op, caps_sig, cap_base, out_cap,
@@ -1326,42 +1348,62 @@ class WaveRunner:
         cap2 = round_capacity(maxc) if op.carry_out else 0
         return rows2, src, verts2, total, caps2, cap2, total
 
-    def _reads_in_place(self, parent: LevelOp, op: LevelOp) -> bool:
-        """Whether count leaf ``op`` reads ``parent``'s compacted worklist in
-        place (``_leaf_in_place``) instead of sliced chunks: its base is the
-        parent's carried survivors, its one INTER or SUB reference and its
-        one upper bound are the parent's new vertex, and nothing else
-        shapes it (no lower bound, exclude, residual, tail or aggregate).
-        The host path, ``record`` (its trace keeps the sliced waves) and
-        the sharded runner slice."""
-        return (self._in_place_leaves and self.device_compact and not self.record
-                and op.kind == "count" and op.use_carry and op.agg is None
-                and op.tail is None and not (op.lb or op.exclude or op.residual)
+    @staticmethod
+    def _carried_leaf(parent: LevelOp, op: LevelOp) -> bool:
+        """Whether count leaf ``op`` takes ``xcount_worklist`` (the form
+        ``carried``): its base is ``parent``'s carried survivors, its one
+        INTER or SUB reference and its one upper bound are the parent's new
+        vertex, and it has no lower bound or exclude."""
+        return (op.use_carry and not (op.lb or op.exclude)
                 and op.inter + op.sub == (parent.level,) and op.ub == (parent.level,))
 
+    def _reads_in_place(self, parent: LevelOp, op: LevelOp) -> bool:
+        """Whether count leaf ``op`` reads ``parent``'s compacted worklist in
+        place (``_leaf_in_place``) instead of sliced chunks: no aggregate,
+        tail or residual shapes it, and it is a carried leaf
+        (``_carried_leaf``) or, with ``fused_level``, a leaf of at least one
+        reference whose base, references, bounds and excludes are the
+        parent's carried survivors, its new vertex or columns it forwards
+        (one k-reference launch a call, whatever its shape). The host
+        path, ``record`` (its trace keeps the sliced waves) and the sharded
+        runner slice."""
+        if not (self._in_place_leaves and self.device_compact and not self.record
+                and op.kind == "count" and op.agg is None and op.tail is None
+                and not op.residual):
+            return False
+        if self._carried_leaf(parent, op):
+            return True
+        refs = op.inter + op.sub
+        return (self.fused_level and 0 < len(refs) <= MAX_REFS and parent.level < MAX_COLS
+                and set(op.val_refs()) <= set(parent.out_cols))
+
     def _leaf_in_place(self, parent: LevelOp, op: LevelOp, key: int, owners: int,
-                       rows2, src, verts2, total: int, caps2: dict, cap2: int):
+                       cols: dict, rows2, src, verts2, total: int, caps2: dict, cap2: int):
         """Count leaf ``op`` over every chunk of ``parent``'s compacted
-        worklist ``(rows2, src, verts2)`` of ``total`` items, read in place:
-        one ``xcount_worklist`` launch a chunk into the run's int64
-        accumulator under ``key``, zeroed once a run. Returns the
-        accumulator when this call made it (the caller hands it to its
-        ``owners`` plans' partials, once), else None. The counters are the
-        sliced path's: each chunk is a level call with its cache lookup and
-        a partial a plan to read."""
+        worklist ``(rows2, src, verts2)`` of ``total`` items, read in place,
+        the parent's forwarded columns taken from its wave's ``cols``: one
+        launch a chunk into the run's int64 accumulator under ``key``,
+        zeroed once a run. Returns the accumulator when this call made it
+        (the caller hands it to its ``owners`` plans' partials, once), else
+        None. The counters are the sliced path's: each chunk is a level call
+        with its cache lookup and a partial a plan to read."""
         acc = self._accs.get(key)
         fresh = acc is None
         if fresh:
             acc = self._accs[key] = torch.zeros((), dtype=torch.int64, device=self.device)
-        caps_sig = ((parent.level, caps2[parent.level]),)
+        form = "carried" if self._carried_leaf(parent, op) else "csr"
+        caps_sig = tuple(sorted((c, caps2[c]) for c in op.row_refs()))
+        cap_base = cap2 if op.use_carry else caps2[op.base]
+        fwd = tuple(cols.get(c) for c in range(parent.level))
         calls = 0
         for lo, m in self._chunk_steps(total):
             with self._level_span(op, m):
                 self._bump(op)
-                fn = self._executable(("pleaf", op, caps_sig, cap2),
-                                      lambda: self._worklist_body(op, caps_sig, cap2))
-                self._dispatch(op, fn, (self.g, rows2, src, verts2, lo, m, acc), items=m,
-                               caps_sig=caps_sig, inplace=True)
+                fn = self._executable(
+                    ("pleaf", op, caps_sig, cap_base),
+                    lambda: self._worklist_body(op, caps_sig, cap_base, form))
+                self._dispatch(op, fn, (self.g, rows2, src, verts2, fwd, lo, m, acc),
+                               items=m, caps_sig=caps_sig, form=form)
             calls += 1
         self._ct_in_place.inc(calls)
         # the JAX engine reads one partial a chunk a plan; ``run`` counts a

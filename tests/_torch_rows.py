@@ -158,13 +158,15 @@ def make_csr(stacks, value_stacks=()):
 
 
 def make_worklist(seed, parents, out_cap, cap_b, total, items):
-    """A carried count leaf's operands as its parent expand leaves them: a
-    CSR over ``nv`` vertices (some rows longer than ``cap_b``, so cut, some
-    empty), ``rows2`` (parents, out_cap) of sorted keys over the vertices,
-    SENTINEL after each row's survivors, and the worklist ``src`` /
-    ``verts2`` of ``items`` entries, the first ``total`` live (src sorted;
-    every seventh vertex 0, whose bound 0 kills its row), the rest (0, 0)
-    as ``expand_items`` leaves them. -> dict of numpy arrays and ``total``."""
+    """A count leaf's operands as its parent expand leaves them: a CSR over
+    ``nv`` vertices (some rows longer than ``cap_b``, so cut, some empty),
+    ``rows2`` (parents, out_cap) of sorted keys over the vertices, SENTINEL
+    after each row's survivors, the worklist ``src`` / ``verts2`` of
+    ``items`` entries, the first ``total`` live (src sorted; every seventh
+    vertex 0, whose bound 0 kills its row), the rest (0, 0) as
+    ``expand_items`` leaves them, and ``cols`` (3, parents): the three
+    columns the parent forwards, vertex ids (one in nine 0), so that
+    ``verts2`` is column 3. -> dict of numpy arrays and ``total``."""
     rng = np.random.default_rng(seed)
     nv = 2 * max(out_cap, cap_b)
     degs = rng.integers(0, cap_b + cap_b // 2 + 1, nv)
@@ -178,20 +180,61 @@ def make_worklist(seed, parents, out_cap, cap_b, total, items):
     src[:total] = np.sort(rng.integers(0, parents, total))
     verts2[:total] = rng.integers(1, nv, total)
     verts2[:total:7] = 0
-    return dict(indptr=indptr, indices=indices, rows2=make_rows(rng, parents, out_cap, nv),
-                src=src, verts2=verts2, total=total)
+    rows2 = make_rows(rng, parents, out_cap, nv)
+    cols = rng.integers(1, nv, (3, parents)).astype(np.int32)
+    cols[rng.random((3, parents)) < 1 / 9] = 0
+    return dict(indptr=indptr, indices=indices, rows2=rows2, src=src, verts2=verts2,
+                cols=cols, total=total)
 
 
-def worklist_count(w, lo, m, cap_a, cap_b, sub=False) -> int:
+# general leaves over make_worklist's columns (0, 1, 2 forwarded, 3 the new
+# vertex): (base column or None for the carried rows2, refs, pol, ub, lb,
+# exclude); paw's leaf is the second
+GENERAL_LEAVES = {
+    "k1-new-vertex-base": (3, (0,), (1,), (1,), (), ()),
+    "k2-sub-excludes": (3, (0, 1), (0, 0), (), (), (0, 1)),
+    "k2-forwarded-base-lb": (1, (3, 0), (1, 0), (3,), (2,), ()),
+    "k3-carried": (None, (3, 0, 2), (1, 1, 0), (3,), (1,), (2,)),
+    "k3-forwarded-base": (2, (0, 1, 3), (1, 0, 0), (0, 1), (), (3,)),
+}
+
+
+def leaf_caps(leaf, cap_a, cap_b):
+    """(cap of the base, caps of the references) of a GENERAL_LEAVES leaf:
+    references alternate cap_b and cap_a."""
+    return cap_a, tuple(cap_b if r % 2 == 0 else cap_a for r in range(len(leaf[1])))
+
+
+def worklist_count(w, lo, m, cap_a, cap_b, sub=False, leaf=None) -> int:
     """The count of the chunk [lo, lo + m) of ``make_worklist``'s ``w`` by
-    Python sets: per item, the base row's keys below the item's vertex, cut
-    at cap_a, that are in (``sub``: not in) the vertex's CSR row cut at
-    cap_b."""
+    Python sets. With no ``leaf``, the carried leaf: per item, the base
+    row's keys below the item's vertex, cut at cap_a, that are in
+    (``sub``: not in) the vertex's CSR row cut at cap_b. With a
+    GENERAL_LEAVES ``leaf``: per item, its base's keys (the carried row cut
+    at cap_a, or its base column's CSR row cut at cap_a) inside the bounds
+    of its ub and lb columns' vertices, none of its exclude columns'
+    vertices, in each INTER and in no SUB reference's CSR row cut at its
+    cap (``leaf_caps``)."""
     indptr, indices = w["indptr"], w["indices"]
+
+    def nbrs(v, cap):
+        return [int(k) for k in indices[indptr[v]: indptr[v] + min(indptr[v + 1] - indptr[v],
+                                                                    cap)]]
+    if leaf is None:
+        leaf = (None, (3,), (0,) if sub else (1,), (3,), (), ())
+        caps_b = (cap_b,)
+    else:
+        caps_b = leaf_caps(leaf, cap_a, cap_b)[1]
+    base, refs, pol, ub, lb, exclude = leaf
     total = 0
     for i in range(lo, lo + m):
-        v = int(w["verts2"][i])
-        base = [int(k) for k in w["rows2"][w["src"][i], :cap_a] if k < v]
-        nbrs = set(indices[indptr[v]: indptr[v] + min(indptr[v + 1] - indptr[v], cap_b)])
-        total += sum((k in nbrs) != sub for k in base)
+        ids = [int(c[w["src"][i]]) for c in w["cols"]] + [int(w["verts2"][i])]
+        keys = [int(k) for k in w["rows2"][w["src"][i], :cap_a] if k != SENTINEL] \
+            if base is None else nbrs(ids[base], cap_a)
+        hi = min([ids[c] for c in ub], default=SENTINEL)
+        lo_ = max([ids[c] for c in lb], default=-1)
+        out = {ids[c] for c in exclude}
+        rows = [(set(nbrs(ids[r], cap)), p) for r, cap, p in zip(refs, caps_b, pol)]
+        total += sum(lo_ < k < hi and k not in out and all((k in s) == bool(p) for s, p in rows)
+                     for k in keys)
     return total

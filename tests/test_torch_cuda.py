@@ -18,9 +18,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import svinter as SV
 from repro_torch.sparse import from_dense, random_csf, spmsp_matmul, ttv
 
-from _torch_rows import (AGG_OPS, AGG_QUERIES, T, make_agg_case, make_bounds, make_case,
-                         make_csr, make_level_case, make_rows, make_values,
-                         make_vinter_case, make_worklist, offset_view, sum_is_exact)
+from _torch_rows import (AGG_OPS, AGG_QUERIES, GENERAL_LEAVES, T, make_agg_case,
+                         make_bounds, make_case, make_csr, make_level_case, make_rows,
+                         make_values, make_vinter_case, make_worklist, offset_view,
+                         sum_is_exact)
 
 pytestmark = pytest.mark.cuda
 
@@ -447,16 +448,55 @@ WORKLIST_SHAPES = [(128, 128, 256), (130, 128, 1024), (1030, 1024, 2048),
                    (2048, 2048, 128)]
 
 
-@pytest.mark.parametrize("sub", [False, True])
-@pytest.mark.parametrize("out_cap,cap_a,cap_b", WORKLIST_SHAPES)
-def test_count_worklist_kernel_equals_plain_version(cuda, out_cap, cap_a, cap_b, sub):
-    """The in-place leaf over every chunk of a worklist (full chunks, a
-    short last one, dead rows among them) adds into one int64 from
-    2^31 - 5 what its plain version adds and what the sliced chunks' CSR
-    count kernel sums to; one launch a chunk, none for an empty one."""
-    chunk = 96
-    w = make_worklist(out_cap + cap_b + sub, 40, out_cap, cap_b, 3 * chunk + 40,
-                      4 * chunk)
+# the general in-place leaf (GENERAL_LEAVES): (out_cap, cap of the base,
+# caps of the references, leaf, chunk). Caps up to 1024 run a warp a row,
+# 2048 a block a row; out_cap 130 starts rows off 16-byte boundaries; the
+# last two are paw's leaf at its commonest shape on the benchmark's mico
+# twin (a chunk of 2944 items) and a carried base at that chunk
+GENERAL_WORKLIST_CASES = [
+    (128, 128, (256, 128, 256), "k3-forwarded-base", 96),
+    (130, 128, (1024, 128, 1024), "k3-carried", 96),
+    (128, 1024, (1024,), "k1-new-vertex-base", 96),
+    (1030, 2048, (2048, 1024), "k2-forwarded-base-lb", 96),
+    (256, 2048, (128, 2048), "k2-sub-excludes", 2944),
+    (2048, 2048, (512, 2048, 128), "k3-carried", 2944),
+]
+WORKLIST_CASES = [
+    *(pytest.param(o, a, (b,), sub, None, 96, id=f"{o}-{a}-{b}-{sub}")
+      for o, a, b in WORKLIST_SHAPES for sub in (False, True)),
+    *(pytest.param(o, a, bs, False, leaf, chunk,
+                   id=f"{o}-{a}-{'-'.join(map(str, bs))}-{leaf}-{chunk}")
+      for o, a, bs, leaf, chunk in GENERAL_WORKLIST_CASES)]
+
+
+def _sliced_general(dev, cols, lo, m, leaf, cap_a, caps_b) -> int:
+    """A general leaf's count of the chunk [lo, lo + m) as the sliced path
+    has it: the columns gathered through src, then the k-reference CSR
+    count kernel, summed."""
+    ip, ix, rows2, src, verts2 = dev
+    base, refs, pol, ub, lb, excl = leaf
+    s = src[lo: lo + m].long()
+    get = [c[s] for c in cols] + [verts2[lo: lo + m]]
+    base_kw = dict(a=rows2[s, :cap_a]) if base is None else dict(va=get[base], cap_a=cap_a)
+    bounds = torch.stack([get[c] for c in ub]).amin(0) if ub else None
+    lbounds = torch.stack([get[c] for c in lb]).amax(0) if lb else None
+    ex = torch.stack([get[c] for c in excl], dim=1) if excl else None
+    return int(K.intersect_multi_csr(ip, ix, torch.stack([get[j] for j in refs]), caps_b, pol,
+                                     **base_kw, bounds=bounds, lbounds=lbounds,
+                                     excludes=ex).sum())
+
+
+@pytest.mark.parametrize("out_cap,cap_a,caps_b,sub,leaf,chunk", WORKLIST_CASES)
+def test_count_worklist_kernel_equals_plain_version(cuda, out_cap, cap_a, caps_b, sub, leaf,
+                                                    chunk):
+    """The in-place leaves over every chunk of a worklist (full chunks, a
+    short last one, dead rows among them) add into one int64 from
+    2^31 - 5 what their plain versions add and what the sliced chunks' CSR
+    count kernels sum to; one launch a chunk, none for an empty one.
+    ``leaf`` None: the carried leaf; else a general leaf of
+    GENERAL_LEAVES."""
+    w = make_worklist(out_cap + max(caps_b) + sub, 40, out_cap, max(caps_b),
+                      3 * chunk + 40, 4 * chunk)
     names = ("indptr", "indices", "rows2", "src", "verts2")
     cpu = [T(w[k]) for k in names]
     dev = [x.to(cuda) for x in cpu]
@@ -464,20 +504,44 @@ def test_count_worklist_kernel_equals_plain_version(cuda, out_cap, cap_a, cap_b,
     got = torch.tensor(start, dtype=torch.int64, device=cuda)
     want = torch.tensor(start, dtype=torch.int64)
     sliced = start
-    count_csr = K.intersect_sub_count_csr if sub else K.intersect_count_csr
-    n, calls = K.intersect_count_worklist.launches, 0
+    if leaf is None:
+        kernel, cap_b = K.intersect_count_worklist, caps_b[0]
+        count_csr = K.intersect_sub_count_csr if sub else K.intersect_count_csr
+
+        def add(ops, lo, m, total):
+            return K.intersect_count_worklist(*ops, lo, m, cap_a, cap_b, total, sub)
+
+        def sliced_count(lo, m):
+            ip, ix, rows2, src, verts2 = dev
+            v = verts2[lo: lo + m]
+            a = rows2[src[lo: lo + m].long(), :cap_a].contiguous()
+            return int(count_csr(ip, ix, v, cap_b, a=a, bounds=v).sum())
+    else:
+        kernel, spec = K.intersect_multi, GENERAL_LEAVES[leaf]
+        base, refs, pol, ub, lb, excl = spec
+        cols = {"cpu": tuple(T(c) for c in w["cols"])}
+        cols["cuda"] = tuple(c.to(cuda) for c in cols["cpu"])
+
+        def add(ops, lo, m, total):
+            return K.intersect_multi_count_worklist(*ops, cols[ops[0].device.type], lo, m,
+                                                    total, base, cap_a, refs, caps_b, pol,
+                                                    ub, lb, excl)
+
+        def sliced_count(lo, m):
+            return _sliced_general(dev, cols["cuda"], lo, m, spec, cap_a, caps_b)
+    calls = 0
     for lo in range(0, w["total"], chunk):
         m = min(chunk, w["total"] - lo)
-        assert K.intersect_count_worklist(*dev, lo, m, cap_a, cap_b, got, sub) is got
-        K.intersect_count_worklist(*cpu, lo, m, cap_a, cap_b, want, sub)
-        ip, ix, rows2, src, verts2 = dev
-        v = verts2[lo: lo + m]
-        a = rows2[src[lo: lo + m].long(), :cap_a].contiguous()
-        sliced += int(count_csr(ip, ix, v, cap_b, a=a, bounds=v).sum())
+        n = kernel.launches
+        assert add(dev, lo, m, got) is got
+        assert kernel.launches == n + 1
+        add(cpu, lo, m, want)
+        sliced += sliced_count(lo, m)
         calls += 1
-    K.intersect_count_worklist(*dev, w["total"], 0, cap_a, cap_b, got, sub)
+    n = kernel.launches
+    add(dev, w["total"], 0, got)
     torch.cuda.synchronize()
-    assert calls == 4 and K.intersect_count_worklist.launches == n + calls
+    assert calls == 4 and kernel.launches == n
     assert int(got) == int(want) == sliced > 2**31 - 1
 
 

@@ -22,7 +22,8 @@ from repro.mining.session import Miner as JMiner
 from repro_torch import Miner
 from repro_torch.graph import get_dataset
 from repro_torch.mining import baseline, engine
-from repro_torch.mining.plan import TRIANGLE, clique_pattern, compile_pattern
+from repro_torch.mining.plan import (TRIANGLE, clique_pattern, compile_pattern,
+                                     matching_orders, resolve_query)
 from repro_torch.mining import session as session_mod
 from repro_torch.mining.session import ExecutableCache, MinerConfig
 from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -57,11 +58,13 @@ def test_counts_and_counters_equal_jax_miner(name, scale, chunk):
         assert runner_counters(tm) == runner_counters(jm), q
 
 
-# the carried leaves that read their parent's worklist in place: a
-# clique's last level and diamond's SUB leaf; every other query's leaves slice
+# the leaves that read their parent's worklist in place: a clique's last
+# level and diamond's SUB leaf (carried), paw's general leaf (its base the
+# new vertex's row, its references and excludes forwarded columns); the
+# one-level queries have no parent and slice
 IN_PLACE_LEAVES = {"4-clique": ("count", 3), "5-clique": ("count", 4),
-                   "diamond": ("count", 3)}
-SLICED = ("triangle", "tailed-triangle", "three-chain", "paw")
+                   "diamond": ("count", 3), "paw": ("count", 3)}
+SLICED = ("triangle", "tailed-triangle", "three-chain")
 
 
 @pytest.mark.parametrize("name,scale", GRAPHS)
@@ -69,8 +72,8 @@ SLICED = ("triangle", "tailed-triangle", "three-chain", "paw")
 def test_carried_leaves_read_their_worklist_in_place(name, scale, chunk):
     """``leaf_inplace_calls`` counts every call of the in-place leaves and
     none of the other queries'; a ``record=True`` runner slices them all
-    and counts the same; a forest holding diamond and 4-clique counts what
-    ``run`` does and reads worklists in place too."""
+    and counts the same; a forest of paw, diamond, 4-clique and 4-cycle
+    counts what ``run`` does and reads worklists in place too."""
     g = get_dataset(name, scale)
     m = Miner(g, device="cpu", chunk=chunk)
     calls = m.metrics.counter("leaf_inplace_calls")
@@ -86,10 +89,32 @@ def test_carried_leaves_read_their_worklist_in_place(name, scale, chunk):
     for q in IN_PLACE_LEAVES:
         assert rec.run(m.compile(q)) == counts[q], q
     assert rec.metrics.counter("leaf_inplace_calls").value == 0 and rec.trace
+    counts["4-cycle"] = m.count("4-cycle")
     c0 = calls.value
-    batch = ["diamond", "4-clique", "paw", "4-cycle"]
-    assert m.count_many(batch)[:3] == [counts[q] for q in batch[:3]]
+    batch = ["paw", "diamond", "4-clique", "4-cycle"]
+    assert m.count_many(batch) == [counts[q] for q in batch]
     assert calls.value > c0
+
+
+@pytest.mark.parametrize("query", ["paw", "diamond"])
+def test_every_matching_order_reads_in_place_and_counts_what_record_counts(query):
+    """Each matching order of paw and diamond puts its leaf's base, its
+    references, bounds and excludes on other columns: every order's leaf
+    reads its worklist in place, each call of it, and counts what a
+    ``record=True`` runner's sliced chunks count."""
+    g = get_dataset("email-eu-core", 0.25)
+    cache = ExecutableCache(device="cpu")
+    orders = matching_orders(resolve_query(query))
+    assert len(orders) >= 5
+    for order in orders:
+        plan = compile_pattern(order)
+        run = engine.WaveRunner(g, cache, chunk=128)
+        rec = engine.WaveRunner(g, cache, chunk=128, record=True)
+        got = run.run(plan)
+        assert got == rec.run(plan) > 0, order
+        leaf = (plan.ops[-1].kind, plan.ops[-1].level)
+        assert run.metrics.counter("leaf_inplace_calls").value == \
+            run.level_execs[leaf] == rec.level_execs[leaf] > 0, order
 
 
 def test_in_place_leaves_count_the_slice_lookup_and_build_no_slice():

@@ -32,7 +32,8 @@ from repro_torch.kernels import intersect as K
 from repro_torch.kernels import ops as tops
 from repro_torch.mining import engine
 
-from _torch_rows import T, make_bounds, make_values, make_worklist, worklist_count
+from _torch_rows import (GENERAL_LEAVES, T, leaf_caps, make_bounds, make_values,
+                         make_worklist, worklist_count)
 
 V = 300
 HUB = 7          # degree above both caps below: its rows are cut
@@ -165,25 +166,51 @@ def test_csr_wrappers_count_launches_only_on_the_card():
     assert (K.intersect_count.launches, K.intersect_multi_agg.launches) == (n0, n1)
 
 
-@pytest.mark.parametrize("sub", [False, True])
-@pytest.mark.parametrize("out_cap,cap_a,cap_b", [(128, 128, 128), (130, 128, 256),
-                                                 (256, 128, 128)])
-def test_count_worklist_plain_version_counts_by_sets(out_cap, cap_a, cap_b, sub):
-    """The in-place leaf's plain version over each chunk of a worklist (cut
-    base and B rows, dead rows, a short last chunk) adds the count Python
-    sets give to its total, in place; an empty chunk adds nothing, and
-    nothing launches on the CPU."""
+# (out_cap, cap_a, cap_b, sub, leaf): the carried leaf (leaf None), INTER
+# and SUB, then each general leaf of GENERAL_LEAVES at two shapes
+WORKLIST_CASES = [
+    *(pytest.param(o, a, b, sub, None, id=f"{o}-{a}-{b}-{sub}")
+      for o, a, b in ((128, 128, 128), (130, 128, 256), (256, 128, 128))
+      for sub in (False, True)),
+    *(pytest.param(o, a, b, False, leaf, id=f"{o}-{a}-{b}-{leaf}")
+      for o, a, b in ((128, 128, 128), (130, 128, 256)) for leaf in GENERAL_LEAVES)]
+
+
+@pytest.mark.parametrize("out_cap,cap_a,cap_b,sub,leaf", WORKLIST_CASES)
+def test_count_worklist_plain_version_counts_by_sets(out_cap, cap_a, cap_b, sub, leaf):
+    """The in-place leaves' plain versions over each chunk of a worklist
+    (cut base and reference rows, dead rows, a short last chunk) add the
+    count Python sets give to their total, in place; an empty chunk adds
+    nothing, and nothing launches on the CPU. ``leaf`` None: the carried
+    leaf (``intersect_count_worklist``); else a general leaf
+    (``intersect_multi_count_worklist``) of 1 to 3 INTER and SUB
+    references, its base the new vertex's row, a forwarded column's or the
+    carried row, with upper and lower bounds and excludes."""
     w = make_worklist(out_cap + cap_b + sub, 12, out_cap, cap_b, 70, 96)
     args = [T(w[k]) for k in ("indptr", "indices", "rows2", "src", "verts2")]
     total = torch.tensor(5, dtype=torch.int64)
-    want, n = 5, K.intersect_count_worklist.launches
+    if leaf is None:
+        kernel = K.intersect_count_worklist
+
+        def add(lo, m):
+            return K.intersect_count_worklist(*args, lo, m, cap_a, cap_b, total, sub)
+    else:
+        kernel = K.intersect_multi
+        base, refs, pol, ub, lb, excl = GENERAL_LEAVES[leaf]
+        cols = tuple(T(c) for c in w["cols"])
+        cap_base, caps_b = leaf_caps(GENERAL_LEAVES[leaf], cap_a, cap_b)
+
+        def add(lo, m):
+            return K.intersect_multi_count_worklist(*args, cols, lo, m, total, base, cap_base,
+                                                    refs, caps_b, pol, ub, lb, excl)
+    want, n = 5, kernel.launches
     for lo in range(0, 70, 32):
         m = min(32, 70 - lo)
-        assert K.intersect_count_worklist(*args, lo, m, cap_a, cap_b, total, sub) is total
-        want += worklist_count(w, lo, m, cap_a, cap_b, sub)
-    K.intersect_count_worklist(*args, 70, 0, cap_a, cap_b, total, sub)
+        assert add(lo, m) is total
+        want += worklist_count(w, lo, m, cap_a, cap_b, sub, GENERAL_LEAVES.get(leaf))
+    add(70, 0)
     assert int(total) == want > 5
-    assert K.intersect_count_worklist.launches == n
+    assert kernel.launches == n
 
 
 def _bad_calls():
@@ -198,7 +225,22 @@ def _bad_calls():
     def worklist(rows2=a, src=vb, verts2=va, lo=0, m=4, cap_a=128, total=acc):
         return K.intersect_count_worklist(ip, ix, rows2, src, verts2, lo, m, cap_a, 128,
                                           total)
+
+    def general(cols=(vb, vb), base=2, refs=(0, 1), caps=(128, 128), pol=(0, 0), ub=(),
+                rows2=None, cap_a=128, m=4):
+        return K.intersect_multi_count_worklist(ip, ix, rows2, vb, va, cols, 0, m, acc, base,
+                                                cap_a, refs, caps, pol, ub)
     return {
+        "general refs repeat": lambda: general(refs=(0, 0)),
+        "general column past the new vertex": lambda: general(refs=(0, 3)),
+        "general missing column": lambda: general(cols=(vb, None)),
+        "general int64 column": lambda: general(cols=(vb, vb.long())),
+        "general SUB first": lambda: general(pol=(0, 1)),
+        "general no refs": lambda: general(refs=(), caps=(), pol=()),
+        "general carried without rows2": lambda: general(base=None),
+        "general carried cap_a past rows2": lambda: general(base=None, rows2=a, cap_a=256),
+        "general chunk past items": lambda: general(m=5),
+        "general nine columns": lambda: general(cols=(vb,) * 8, refs=(0, 8)),
         "worklist cap_a past rows2": lambda: worklist(cap_a=256),
         "worklist chunk past items": lambda: worklist(lo=2, m=3),
         "worklist negative lo": lambda: worklist(lo=-1, m=1),

@@ -67,8 +67,8 @@ def test_telemetry_mix_equals_baseline_json():
 def _tree(span) -> tuple:
     """A span without its times: (name, cat, attrs, children), the port's
     ``host`` spans (no ``host`` span has children) and its dispatch spans'
-    ``inplace`` attribute (a leaf read in place) left out."""
-    attrs = {k: v for k, v in span.attrs.items() if k != "inplace"}
+    ``inplace`` and ``form`` attributes (a leaf read in place) left out."""
+    attrs = {k: v for k, v in span.attrs.items() if k not in ("inplace", "form")}
     return (span.name, span.cat, attrs,
             [_tree(c) for c in span.children if c.cat != "host"])
 

@@ -20,7 +20,8 @@ from repro_torch.mining.engine import WaveRunner
 from repro_torch.obs import NO_SPAN, Telemetry, Tracer, activate, active, chrome_trace
 from _torch_rows import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
-# at chunk 16 the waves split into many chunks: every expand slices
+# at chunk 16 the waves split into many chunks: every expand slices, but
+# for its children that are count leaves read in place
 EDGES = powerlaw_cluster(80, 4, seed=5)
 HOST = ("launch", "sync", "slice", "upload")
 
@@ -47,8 +48,10 @@ def _is_level(sp) -> bool:
 
 
 def _mix(m):
+    """Counts whose leaves read in place, and embeddings (4-clique's emit
+    level reads sliced chunks)."""
     return (m.count("4-clique"), m.count_many(["diamond", "4-cycle", "paw"]),
-            m.embeddings("triangle"))
+            m.embeddings("triangle"), m.embeddings("4-clique"))
 
 
 def test_span_times_are_ns_and_self_time_excludes_children():
@@ -127,6 +130,8 @@ def test_host_spans_nest_under_their_level_or_feed(device_compact):
     want = _mix(plain)
     assert got[:2] == want[:2]
     np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3], want[3])
+    assert len(got[3])
     assert dict(plain.runner.stats) == dict(m.runner.stats)
 
 
@@ -196,17 +201,21 @@ def test_launch_counts_a_stubbed_launch(monkeypatch, traced):
 
 
 def test_in_place_leaf_dispatch_has_no_slice_before_it():
-    """4-clique's leaf reads its parent's worklist in place: its dispatch
-    span says ``inplace=True`` and no ``slice`` span sits under the expand
-    before its level span; paw's general leaf reads sliced chunks, each
-    level span right after its ``slice``."""
+    """4-clique's carried leaf and paw's general leaf read their parent's
+    worklist in place: each dispatch span says ``inplace=True`` and its
+    form (``carried``, ``csr``), and no ``slice`` span sits under the
+    expand before its level span; with ``fused_level=False`` paw's leaf
+    reads sliced chunks, each level span right after its ``slice``."""
     tel = Telemetry(enabled=True)
     m = Miner(_graph(), device="cpu", chunk=16, telemetry=tel)
     m.count("4-clique")
     m.count("paw")
+    Miner(_graph(), device="cpu", chunk=16, telemetry=tel, fused_level=False).count("paw")
     roots = tel.tracer.finished
     parents = _parents(roots)
-    for root, in_place in zip(roots, (True, False)):
+    assert len(roots) == 3
+    for root, form in zip(roots, ("carried", "csr", None)):
+        in_place = form is not None
         leaves = []
 
         def walk(sp):
@@ -218,6 +227,7 @@ def test_in_place_leaf_dispatch_has_no_slice_before_it():
         for leaf in leaves:
             disp, = [c for c in leaf.children if c.name == "dispatch"]
             assert disp.attrs.get("inplace", False) is in_place
+            assert disp.attrs.get("form") == form
             sibs = parents[id(leaf)].children
             at = next(i for i, c in enumerate(sibs) if c is leaf)
             assert (sibs[at - 1].name == "slice") is not in_place
